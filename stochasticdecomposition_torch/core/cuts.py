@@ -1,0 +1,201 @@
+"""SD cut formation: the argmax procedure as a dense masked max-reduce.
+
+Reference: ``computeIstar`` (stocUpdate.c:142-190) loops over bases per
+observation; here the whole height table H[sigma, obs] is one tensor
+expression and the per-observation argmax (the triple masked argmax, a CUDA
+kernel on the card) feeds the weighted accumulation of (alpha, beta)
+(SDCut, cuts.c:91-194).  Also: cut heights (cuts.c:197-227), the
+dual-stability ratio (cuts.c:112-128,171-182) and cut-pool management
+(addCut2Pool / reduceCuts, cuts.c:261-360,610-661).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+from stochasticdecomposition_torch.ops.argmax import triple_masked_argmax
+
+_NEG = -1e300
+
+
+def height_table(pa: ProblemArrays, state: SDState, x):
+    """H[s, o] = sigma.pib + delta.pib - (sigma.piC)'x - (delta.piC)'x
+    for every stored dual vertex s and observation o, plus validity masks
+    (the argmax kernel of computeIstar, stocUpdate.c:161-184)."""
+    S = state.sigma_pib.shape[0]
+    O = state.delta_pib.shape[1]
+    dev = x.device
+    if pa.C_cols.shape[0]:
+        piCbarX = state.sigma_piC @ x[pa.C_cols]
+    else:
+        piCbarX = torch.zeros_like(state.sigma_pib)
+    H = (state.sigma_pib - piCbarX)[:, None] + \
+        state.delta_pib[state.sigma_lidx]                         # [S, O]
+    if pa.C_cols_rand.shape[0] and pa.rv_C_rows.shape[0]:
+        H = H - state.delta_piC[state.sigma_lidx] @ x[pa.C_cols_rand]
+    s_valid = (torch.arange(S, device=dev) < state.sigma_cnt) & \
+        state.sigma_feas                                          # feasFlag
+    o_valid = torch.arange(O, device=dev) < state.omega_cnt
+    return H, s_valid, o_valid
+
+
+class CutParts(NamedTuple):
+    alpha: torch.Tensor       # scalar
+    beta: torch.Tensor        # [n1]
+    istar: torch.Tensor       # [O] int64
+    height: torch.Tensor      # [O] argmax height per observation
+    found: bool               # every active obs had a valid vertex
+
+
+def _accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
+    """Weighted (alpha, beta) sums over observations (cuts.c:160-168,184-188)."""
+    n1 = pa.c1.shape[0]
+    dtype = state.sigma_pib.dtype
+    w = torch.where(o_valid, state.omega_w, 0).to(dtype)
+
+    lidx_sel = state.sigma_lidx[istar]                            # [O]
+    o_ids = torch.arange(istar.shape[0], device=istar.device)
+    dpib_sel = state.delta_pib[lidx_sel, o_ids]                   # [O]
+    alpha = torch.sum(w * (state.sigma_pib[istar] + dpib_sel)) / k
+
+    beta = torch.zeros(n1, dtype=dtype, device=istar.device)
+    if pa.C_cols.shape[0]:
+        piC_sel = state.sigma_piC[istar]                          # [O, nCc]
+        beta = beta.index_add(0, pa.C_cols,
+                              torch.sum(w[:, None] * piC_sel, dim=0))
+    if pa.C_cols_rand.shape[0] and pa.rv_C_rows.shape[0]:
+        dpiC_sel = state.delta_piC[lidx_sel, o_ids]               # [O, nCr]
+        beta = beta.index_add(0, pa.C_cols_rand,
+                              torch.sum(w[:, None] * dpiC_sel, dim=0))
+    return alpha, beta / k
+
+
+def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
+             dual_stability: bool, pi_eval_start: int, pi_cycle: int,
+             scan_len: int):
+    """SDCut (cuts.c:91-194): argmax over the vertex pool for every
+    observation, weighted cut coefficients, and the dual-stability update.
+    Returns (CutParts, state) — state carries the pi_ratio/dual_stable
+    update."""
+    if int(pa.rv_d_cols.shape[0]) > 0:
+        raise NotImplementedError(
+            "random cost coefficients (the v2.0 cut path) are not ported yet")
+    dtype = state.sigma_pib.dtype
+    # 10% holdout split (computeIstar:147-157): "old" vertices were found
+    # at ck <= k - (0.1k + 1); "new" ones after.
+    ns_eff = k - math.floor(0.1 * float(k) + 1)
+
+    H, s_valid, o_valid = height_table(pa, state, x)
+    om1 = s_valid & (state.sigma_ck <= ns_eff)
+    nm1 = s_valid & (state.sigma_ck > ns_eff)
+    # One pass over H for all three masked reductions; with dual stability
+    # off the old/new outputs are simply unused.
+    i_all, h_all, i_old, h_old, i_new, h_new = triple_masked_argmax(
+        H, s_valid, om1, nm1)
+
+    if dual_stability:
+        # pi_eval gate (cuts.c:112-113): every PI_CYCLE iters past the start.
+        pi_eval = k > pi_eval_start and (pi_cycle <= 1 or k % pi_cycle == 0)
+        if pi_eval:
+            use_new = h_new > h_old
+            istar = torch.where(use_new, i_new, i_old)
+            hstar = torch.maximum(h_old, h_new)
+        else:
+            istar, hstar = i_all, h_all
+        h_split = torch.maximum(h_old, h_new)
+
+        w = torch.where(o_valid, state.omega_w, 0).to(dtype)
+        cumm_old = torch.sum(w * torch.clamp(h_old - pa.lb, min=0.0))
+        cumm_all = torch.sum(w * torch.clamp(h_split - pa.lb, min=0.0))
+        ratio = torch.where(cumm_all == 0.0, 1.0,
+                            cumm_old / torch.where(cumm_all == 0.0, 1.0,
+                                                   cumm_all))
+        # Rolling window indexed by the iteration k, as the reference's
+        # pi_ratio[numSamples % SCAN_LEN] (cuts.c:172): the candidate and
+        # incumbent cuts of one iteration share a slot.
+        if pi_eval:
+            state.pi_ratio[k % scan_len] = ratio
+            state = state._replace(ratio_cnt=state.ratio_cnt + 1)
+            # Variance over the window (calcVariance, cuts.c:366-396), only
+            # meaningful once the window has wrapped (cuts.c:173-176).
+            if (k - pi_eval_start) > scan_len:
+                window = state.pi_ratio[:scan_len]
+                variance = float(torch.var(window, correction=0)) * \
+                    scan_len / (scan_len - 1)
+            else:
+                variance = 1.0
+            stable = not (abs(variance) >= 2e-6 or float(ratio) < 0.95)
+            state = state._replace(dual_stable=stable)
+    else:
+        istar, hstar = i_all, h_all
+
+    alpha, beta = _accumulate(pa, state, istar, o_valid, k)
+    found = bool(torch.all(~o_valid | (hstar > _NEG / 2)))
+    return CutParts(alpha=alpha, beta=beta, istar=istar, height=hstar,
+                    found=found), state
+
+
+def cut_heights_at(pa: ProblemArrays, state: SDState, x, k: int):
+    """Height of every pooled cut at x with the sample-size discounting
+    (cutHeight, cuts.c:213-227):  (j/k)(alpha - beta'x) + (1 - j/k) lb."""
+    t_over_k = state.cut_ns.to(state.cut_alpha.dtype) / k
+    raw = state.cut_alpha - state.cut_beta @ x
+    return t_over_k * raw + (1.0 - t_over_k) * pa.lb
+
+
+def max_cut_height(pa: ProblemArrays, state: SDState, x, k: int):
+    """maxCutHeight (cuts.c:197-209) over active cut slots; with no active
+    cut the approximation of E[h] is its lower bound (setup.c:102)."""
+    h = cut_heights_at(pa, state, x, k)
+    any_cut = torch.any(state.cut_mask)
+    best = torch.amax(torch.where(state.cut_mask, h, _NEG))
+    return torch.where(any_cut, best, pa.lb)
+
+
+def add_cut(pa: ProblemArrays, state: SDState, parts: CutParts, k: int, *,
+            incumbent: bool, tol: float):
+    """addCut2Pool (cuts.c:616-661) + reduceCuts eviction (cuts.c:277-320).
+
+    Slot discipline: free slot if available; otherwise CANDIDATE cuts evict
+    the oldest slack non-incumbent cut (else the lowest non-incumbent cut at
+    candidX), INCUMBENT cuts replace the old incumbent slot.  A cut whose
+    argmax found no valid vertex for some observation (the istar < 0 error
+    of cuts.c:136-139) is not stored and ``cut_ok`` records the skip.
+    Returns (state, slot)."""
+    K = state.cut_mask.shape[0]
+    dev = state.cut_mask.device
+    if not parts.found:
+        return state._replace(cut_ok=False), state.i_cut_idx
+    n_used = int(torch.sum(state.cut_mask))
+    if n_used < K:
+        slot = int(torch.argmin(state.cut_mask.to(torch.int8)))  # first free
+    elif incumbent:
+        slot = state.i_cut_idx
+    else:
+        is_inc_slot = torch.arange(K, device=dev) == state.i_cut_idx
+        # Oldest (min numSamples) slack cut: |pi| <= tol, not incumbent.
+        slack = (torch.abs(state.pi_cuts) <= tol) & state.cut_mask & \
+            ~is_inc_slot
+        if bool(torch.any(slack)):
+            ns_key = torch.where(slack, state.cut_ns, 2 ** 30)
+            slot = int(torch.argmin(ns_key))
+        else:
+            # Fallback: min height at candidX among non-incumbent cuts.
+            h = cut_heights_at(pa, state, state.candid_x, k)
+            h_key = torch.where(state.cut_mask & ~is_inc_slot, h, math.inf)
+            slot = int(torch.argmin(h_key))
+
+    state.cut_alpha[slot] = parts.alpha
+    state.cut_beta[slot] = parts.beta
+    state.cut_ns[slot] = k
+    state.cut_omega_cnt[slot] = state.omega_cnt
+    state.cut_istar[slot] = parts.istar
+    state.cut_mask[slot] = True
+    state.pi_cuts[slot] = 0.0
+    if incumbent:
+        state = state._replace(i_cut_idx=slot, i_cut_updt=k)
+    return state, slot

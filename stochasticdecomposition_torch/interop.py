@@ -1,0 +1,66 @@
+"""Problem data and SD state carried across from numpy arrays.
+
+``problem_from_numpy`` and ``state_from_numpy`` take ``{field: np.ndarray}``
+— as a test builds it from another implementation's containers with
+``np.asarray`` — and return the port's ``ProblemArrays`` / ``SDState`` on a
+device, so two implementations can start from the same state at any step.
+Fields the port does not carry (the random-cost basis pool, the PRNG key,
+feasibility-mode bookkeeping) are ignored; a missing field raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+
+_INT_FIELDS = {
+    "sense1", "sense2", "rv_b_rows", "rv_C_rows", "rv_C_cols", "rv_d_cols",
+    "lambda_rows", "C_cols", "lam_pos_C", "C_cols_rand", "omega_w",
+    "sigma_lidx", "sigma_ck", "cut_ns", "cut_omega_cnt", "cut_istar",
+    "warm_basis",
+}
+_BOOL_TENSORS = {"sigma_feas", "cut_mask", "fcut_mask", "warm_atup"}
+_PY_INTS = {"k", "lp_cnt", "lp_pivots", "qp_iters", "omega_cnt",
+            "lambda_cnt", "sigma_cnt", "i_cut_idx", "i_cut_updt",
+            "ratio_cnt", "last_o_idx"}
+_PY_BOOLS = {"incumb_chg", "dual_stable", "sp_feas", "master_ok", "cut_ok",
+             "lb_nontrivial"}
+_PY_FLOATS = {"lb"}
+
+
+def _convert(name, value, device, dtype):
+    if name in _PY_INTS:
+        return int(np.asarray(value))
+    if name in _PY_BOOLS:
+        return bool(np.asarray(value))
+    if name in _PY_FLOATS:
+        return float(np.asarray(value))
+    a = np.array(value)            # a writable copy: pools are updated in place
+    if name in _INT_FIELDS:
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    if name in _BOOL_TENSORS:
+        return torch.as_tensor(a.astype(bool), device=device)
+    return torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)
+
+
+def _build(cls, fields: dict, device, dtype):
+    missing = [f for f in cls._fields
+               if f not in fields and f not in cls._field_defaults]
+    if missing:
+        raise KeyError(f"{cls.__name__} fields missing: {missing}")
+    dev = torch.device(device)
+    return cls(**{f: _convert(f, fields[f], dev, dtype)
+                  for f in cls._fields if f in fields})
+
+
+def problem_from_numpy(fields: dict, device="cpu",
+                       dtype=torch.float64) -> ProblemArrays:
+    return _build(ProblemArrays, fields, device, dtype)
+
+
+def state_from_numpy(fields: dict, device="cpu",
+                     dtype=torch.float64) -> SDState:
+    return _build(SDState, fields, device, dtype)
+

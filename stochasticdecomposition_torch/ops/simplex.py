@@ -1,0 +1,426 @@
+"""Bounded-variable revised simplex over a leading lane axis, in PyTorch.
+
+The port of the JAX package's ``ops/simplex.py::solve_lp``, the replacement
+for the CPLEX primal-simplex calls of the reference (subprob.c:43-45).  Every
+SD subproblem solve needs the optimal *basis* — duals, reduced costs, column
+status — because the stochastic updates (stocUpdate.c:14-133) consume them.
+
+The algorithm is the JAX package's, step for step:
+  * the LP  min c'y  s.t. D y {<=,=,>=} b, l<=y<=u  in the computational
+    standard form  A z = b, lo<=z<=up  with A = [D | I] (slack bounds encode
+    the row sense);
+  * composite phase 1 (infeasible basics priced by the infeasibility
+    gradient and blocking at the bound they violate), Devex pricing, a
+    Bland fallback after ``stall_limit`` degenerate pivots, and a Harris
+    two-pass ratio test;
+  * product-form updates of an explicit basis inverse with a refactorization
+    every ``chunk`` pivots, the iteration cap tested only at those chunk
+    boundaries (as the JAX loop tests it);
+  * warm start from a given basis, and a Farkas ray for infeasible LPs.
+
+Lanes are solved in lockstep with per-lane done masks; a lane that is done
+(or past its cap at a chunk boundary) keeps its state.  The loop leaves as
+soon as every lane is done, which changes nothing: the JAX loop's remaining
+masked pivots leave finished lanes as they are.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stochasticdecomposition_torch.ops.linalg import refactorize
+
+# Column / row status codes (mirror CPLEX's CPX_AT_LOWER etc.).
+AT_LOWER = 0
+BASIC = 1
+AT_UPPER = 2
+FREE_NB = 3
+
+STATUS_OPTIMAL = 0
+STATUS_INFEASIBLE = 1
+STATUS_UNBOUNDED = 2
+STATUS_ITER_LIMIT = 3
+
+_INF = float("inf")
+
+
+class LPResult(NamedTuple):
+    """Each field carries the leading lane axis."""
+
+    status: torch.Tensor      # [B] int64
+    obj: torch.Tensor         # [B] objective value (c'y)
+    y: torch.Tensor           # [B, n] primal solution (structural)
+    pi: torch.Tensor          # [B, m] row duals; GE rows >= 0, LE rows <= 0
+    dj: torch.Tensor          # [B, n] reduced costs of structural columns
+    cstat: torch.Tensor       # [B, n] column status
+    rstat: torch.Tensor       # [B, m] slack status
+    basis: torch.Tensor       # [B, m] basic variable index per row
+    binv: torch.Tensor        # [B, m, m] basis inverse
+    iters: torch.Tensor       # [B] iterations used
+    farkas: torch.Tensor      # [B, m] dual ray when infeasible, else zeros
+
+
+def lane(res: LPResult, i: int) -> LPResult:
+    """The result of lane ``i`` alone (fields without the lane axis)."""
+    return LPResult(*(f[i] for f in res))
+
+
+class _State(NamedTuple):
+    basis: torch.Tensor       # [B, m] int64
+    in_basis: torch.Tensor    # [B, nt] bool
+    at_upper: torch.Tensor    # [B, nt] bool (meaningful for nonbasic only)
+    binv: torch.Tensor        # [B, m, m]
+    xb: torch.Tensor          # [B, m] basic values
+    gamma: torch.Tensor       # [B, nt] Devex reference weights
+    it: torch.Tensor          # [B] total iterations
+    stall: torch.Tensor       # [B] consecutive degenerate pivots
+    done: torch.Tensor        # [B] bool
+    status: torch.Tensor      # [B]
+
+
+def _nonbasic_values(lo, up, at_upper, in_basis):
+    """Value assumed by each nonbasic variable (at a finite bound, else 0)."""
+    fin_lo, fin_up = torch.isfinite(lo), torch.isfinite(up)
+    zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
+    v_lower = torch.where(fin_lo, lo, torch.where(fin_up, up, zero))
+    v_upper = torch.where(fin_up, up, torch.where(fin_lo, lo, zero))
+    vals = torch.where(at_upper, v_upper, v_lower)
+    return torch.where(in_basis, zero, vals)
+
+
+def _compute_xb(A, b, binv, xn_full):
+    rhs_eff = b - xn_full @ A.T                               # [B, m]
+    return torch.einsum("bij,bj->bi", binv, rhs_eff)
+
+
+def _take(a, idx):
+    """Per-lane gather: a [B, k], idx [B] -> [B]."""
+    return torch.gather(a, 1, idx[:, None])[:, 0]
+
+
+def _put(a, idx, val):
+    """Per-lane scatter (out of place): a[b, idx[b]] = val[b]."""
+    return a.scatter(1, idx[:, None], val[:, None])
+
+
+def _certify_optimal(status, dj, in_basis, at_upper, lo, up, c, tol):
+    """Demote claimed-OPTIMAL lanes whose clean-refactorization reduced
+    costs violate dual feasibility by far more than pivot-tolerance drift
+    (the JAX package's defence in depth, kept as it is)."""
+    ctol = max(1e-3, 1e3 * tol) * (1.0 + torch.amax(torch.abs(c), dim=1))
+    fixed = (up - lo) <= tol
+    free_nb = ~in_basis & ~torch.isfinite(lo) & ~torch.isfinite(up)
+    at_lo = ~in_basis & ~fixed & (~at_upper | free_nb)
+    at_up = ~in_basis & ~fixed & (at_upper | free_nb)
+    viol = (at_lo & (dj < -ctol[:, None])) | (at_up & (dj > ctol[:, None]))
+    dual_ok = ~torch.any(viol, dim=1)
+    return torch.where((status == STATUS_OPTIMAL) & ~dual_ok,
+                       torch.full_like(status, STATUS_ITER_LIMIT), status)
+
+
+def _lanes(a, B, dtype):
+    a = a.to(dtype)
+    return a.expand(B, -1) if a.dim() == 1 else a
+
+
+def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
+             refac_every: int | None = None, stall_limit: int = 24,
+             pivot_dtype=None, lite: bool = False,
+             partial_pricing: bool = False,
+             init_basis=None, init_at_upper=None) -> LPResult:
+    """Solve  min d'y  s.t.  D y {sense} b,  l <= y <= u  for every lane.
+
+    D: [m, n] and sense: [m] are shared; d: [B, n] and b: [B, m] carry the
+    lane axis; l, u: [n] or [B, n].  ``init_basis`` [B, m] and
+    ``init_at_upper`` [B, n + m] warm-start the lanes.  ``max_iter=0``
+    derives a cap of 4*(m+n)+64; ``refac_every=None`` the refactorization
+    cadence max(64, min(512, m // 4)).
+
+    ``pivot_dtype``, ``lite`` and ``partial_pricing`` are options of the JAX
+    solver that the SD main path does not use; they are not ported.
+    """
+    if pivot_dtype is not None or lite or partial_pricing:
+        raise NotImplementedError(
+            "pivot_dtype, lite and partial_pricing are not ported; the SD "
+            "main path solves in full f64 with full pricing")
+    dtype = D.dtype
+    dev = D.device
+    Bn = b.shape[0]
+    m, n = D.shape
+    nt = n + m
+    if max_iter == 0:
+        max_iter = 4 * (m + n) + 64
+    if refac_every is None:
+        refac_every = max(64, min(512, m // 4))
+
+    d = _lanes(d, Bn, dtype)
+    b = b.to(dtype)
+    A = torch.cat([D, torch.eye(m, dtype=dtype, device=dev)], dim=1)
+    inf = torch.full((m,), _INF, dtype=dtype, device=dev)
+    zm = torch.zeros(m, dtype=dtype, device=dev)
+    slack_lo = torch.where(sense > 0, -inf, zm)
+    slack_up = torch.where(sense < 0, inf, zm)
+    lo = torch.cat([_lanes(l, Bn, dtype), slack_lo.expand(Bn, -1)], dim=1)
+    up = torch.cat([_lanes(u, Bn, dtype), slack_up.expand(Bn, -1)], dim=1)
+    c = torch.cat([d, zm.expand(Bn, -1)], dim=1)
+    fin_lo, fin_up = torch.isfinite(lo), torch.isfinite(up)
+    col_ids = torch.arange(nt, device=dev)
+    lane_ids = torch.arange(Bn, device=dev)
+    eye_m = torch.eye(m, dtype=dtype, device=dev)
+
+    # ---- initial basis: warm start or all-slack ---------------------------
+    basis_c = torch.arange(n, n + m, device=dev).expand(Bn, -1)
+    in_basis_c = torch.cat([torch.zeros(n, dtype=torch.bool, device=dev),
+                            torch.ones(m, dtype=torch.bool, device=dev)]
+                           ).expand(Bn, -1)
+    at_upper_c = ~fin_lo & fin_up
+    if init_basis is None:
+        basis0, in_basis0, at_upper0 = basis_c, in_basis_c, at_upper_c
+        binv0 = eye_m.expand(Bn, -1, -1)
+    else:
+        basis_w = init_basis.to(torch.int64)
+        in_basis_w = torch.zeros((Bn, nt), dtype=torch.bool, device=dev
+                                 ).scatter(1, basis_w, True)
+        at_upper_w = (init_at_upper.to(torch.bool) & ~in_basis_w
+                      if init_at_upper is not None
+                      else at_upper_c & ~in_basis_w)
+        binv_w = refactorize(A, basis_w)
+        # Singularity guard: a warm basis whose inverse is not finite
+        # falls back to the cold all-slack start, lane by lane.
+        warm_ok = torch.all(torch.isfinite(binv_w).reshape(Bn, -1), dim=1)
+        wk = warm_ok[:, None]
+        basis0 = torch.where(wk, basis_w, basis_c)
+        in_basis0 = torch.where(wk, in_basis_w, in_basis_c)
+        at_upper0 = torch.where(wk, at_upper_w, at_upper_c)
+        binv0 = torch.where(wk[:, :, None], binv_w, eye_m)
+    basis0 = basis0.contiguous()
+    xn0 = _nonbasic_values(lo, up, at_upper0, in_basis0)
+    xb0 = _compute_xb(A, b, binv0, xn0)
+
+    i64 = torch.int64
+    st = _State(
+        basis=basis0, in_basis=in_basis0.contiguous(),
+        at_upper=at_upper0.contiguous(), binv=binv0.contiguous(), xb=xb0,
+        gamma=torch.ones((Bn, nt), dtype=dtype, device=dev),
+        it=torch.zeros(Bn, dtype=i64, device=dev),
+        stall=torch.zeros(Bn, dtype=i64, device=dev),
+        done=torch.zeros(Bn, dtype=torch.bool, device=dev),
+        status=torch.full((Bn,), STATUS_OPTIMAL, dtype=i64, device=dev),
+    )
+
+    big_ratio = torch.finfo(dtype).max / 8
+    feas_tol = max(tol, 1e-9)
+    one = torch.ones((), dtype=dtype, device=dev)
+    big = torch.full((), big_ratio, dtype=dtype, device=dev)
+    not_fixed = (up - lo) > tol
+    free_all = ~fin_lo & ~fin_up
+
+    def body(st: _State, frozen) -> _State:
+        basis, in_basis, at_upper, binv, xb = (
+            st.basis, st.in_basis, st.at_upper, st.binv, st.xb)
+
+        lo_b = torch.gather(lo, 1, basis)
+        up_b = torch.gather(up, 1, basis)
+        viol_lo = xb < lo_b - tol
+        viol_hi = xb > up_b + tol
+        in_phase1 = torch.any(viol_lo | viol_hi, dim=1)            # [B]
+        p1 = in_phase1[:, None]
+
+        # Pricing vector: phase-1 infeasibility gradient or real costs.
+        cb1 = torch.where(viol_lo, -one, torch.where(viol_hi, one, 0 * one))
+        cb = torch.where(p1, cb1, torch.gather(c, 1, basis))
+        piv = torch.einsum("bi,bij->bj", cb, binv)                # [B, m]
+        red = torch.where(p1, 0 * one, c) - piv @ A               # [B, nt]
+
+        free_nb = ~in_basis & free_all
+        elig_inc = ~in_basis & not_fixed & (~at_upper | free_nb) & (red < -tol)
+        elig_dec = ~in_basis & not_fixed & (at_upper | free_nb) & (red > tol)
+        elig = elig_inc | elig_dec
+        score = torch.where(elig, red * red / st.gamma, -one)
+
+        use_bland = st.stall >= stall_limit
+        bland_key = torch.where(elig, -col_ids, -(nt + 1))
+        j = torch.where(use_bland, torch.argmax(bland_key, dim=1),
+                        torch.argmax(score, dim=1))                # [B]
+        any_elig = torch.any(elig, dim=1)
+
+        term_status = torch.where(in_phase1, STATUS_INFEASIBLE,
+                                  STATUS_OPTIMAL)
+        dir_ = torch.where(_take(elig_inc, j), one, -one)          # [B]
+
+        w = torch.einsum("bij,jb->bi", binv, A[:, j])             # [B, m]
+        delta = -dir_[:, None] * w
+
+        # --- Harris two-pass ratio test ----------------------------------
+        moving_up = delta > tol
+        moving_dn = delta < -tol
+        upper_target = torch.where(viol_lo, lo_b,
+                                   torch.where(viol_hi, _INF * one, up_b))
+        lower_target = torch.where(viol_hi, up_b,
+                                   torch.where(viol_lo, -_INF * one, lo_b))
+        fin_ut, fin_lt = torch.isfinite(upper_target), \
+            torch.isfinite(lower_target)
+        den_up = torch.where(moving_up, delta, one)
+        den_dn = torch.where(moving_dn, delta, one)
+        r_up = torch.where(moving_up & fin_ut,
+                           (upper_target - xb) / den_up, big)
+        r_dn = torch.where(moving_dn & fin_lt,
+                           (lower_target - xb) / den_dn, big)
+        ratios = torch.clamp(torch.minimum(r_up, r_dn), min=0.0)
+
+        r_up_rel = torch.where(moving_up & fin_ut,
+                               (upper_target - xb + feas_tol) / den_up, big)
+        r_dn_rel = torch.where(moving_dn & fin_lt,
+                               (lower_target - xb - feas_tol) / den_dn, big)
+        theta_rel = torch.clamp(torch.amin(
+            torch.minimum(r_up_rel, r_dn_rel), dim=1), min=0.0)   # [B]
+
+        span_j = _take(up, j) - _take(lo, j)
+        flip_ratio = torch.where(torch.isfinite(span_j), span_j, big)
+
+        # Pass 2: stable leaving row among the relaxed candidates.
+        cand = ratios <= theta_rel[:, None]
+        leave_score = torch.where(cand, torch.abs(w), -one)
+        r_leave = torch.argmax(leave_score, dim=1)                # [B]
+        min_basic_ratio = torch.where(torch.any(cand, dim=1),
+                                      _take(ratios, r_leave), big)
+
+        t_star = torch.minimum(min_basic_ratio, flip_ratio)
+        unbounded = (t_star >= big_ratio) & ~in_phase1
+        stuck = (t_star >= big_ratio) & in_phase1
+        do_flip = flip_ratio < min_basic_ratio - tol
+
+        # --- apply the step --------------------------------------------
+        xb_new = xb + t_star[:, None] * delta
+        at_upper_flip = _put(at_upper, j, ~_take(at_upper, j))
+
+        leave_var = _take(basis, r_leave)
+        leave_delta = _take(delta, r_leave)
+        blocked_at = torch.where(leave_delta > 0,
+                                 _take(upper_target, r_leave),
+                                 _take(lower_target, r_leave))
+        leave_is_upper = torch.abs(blocked_at - _take(up, leave_var)) <= \
+            torch.abs(blocked_at - _take(lo, leave_var))
+
+        basis_new = _put(basis, r_leave, j)
+        in_basis_new = _put(_put(in_basis, j, torch.ones_like(any_elig)),
+                            leave_var, torch.zeros_like(any_elig))
+        at_upper_new = _put(_put(at_upper, leave_var, leave_is_upper), j,
+                            torch.zeros_like(any_elig))
+
+        # Devex weight update (Forrest-Goldfarb reference framework).
+        w_r = _take(w, r_leave)
+        safe_wr = torch.where(torch.abs(w_r) < 1e-12, one, w_r)
+        binv_row_r = binv[lane_ids, r_leave]                      # [B, m]
+        alpha_row = binv_row_r @ A                                # [B, nt]
+        g_q = _take(st.gamma, j)
+        cand_g = torch.square(alpha_row / safe_wr[:, None]) * g_q[:, None]
+        gamma_piv = torch.maximum(st.gamma, cand_g)
+        gamma_piv = _put(gamma_piv, leave_var, torch.clamp(
+            g_q / torch.square(safe_wr), min=1.0))
+        reset = torch.amax(gamma_piv, dim=1) > 1e8
+        gamma_piv = torch.where(reset[:, None], one, gamma_piv)
+
+        # Product-form update of the inverse: E = I - (w - e_r)/w_r * e_r'.
+        eta = _put(-w / safe_wr[:, None], r_leave, 1.0 / safe_wr)
+        e_r = eye_m[r_leave]                                      # [B, m]
+        binv_new = binv + (eta - e_r)[:, :, None] * binv_row_r[:, None, :]
+        x_j_old = _take(_nonbasic_values(lo, up, at_upper, in_basis), j)
+        xb_pivot = _put(xb_new, r_leave, x_j_old + dir_ * t_star)
+
+        degen = t_star <= tol
+        stall_new = torch.where(degen, st.stall + 1, 0)
+
+        finished = ~any_elig | unbounded | stuck
+        status_new = torch.where(
+            ~any_elig, term_status,
+            torch.where(unbounded, STATUS_UNBOUNDED,
+                        torch.where(stuck, STATUS_INFEASIBLE, st.status)))
+
+        # Flip: the entering variable stays nonbasic at its other bound.
+        fl = do_flip[:, None]
+        basis2 = torch.where(fl, basis, basis_new)
+        in_basis2 = torch.where(fl, in_basis, in_basis_new)
+        at_upper2 = torch.where(fl, at_upper_flip, at_upper_new)
+        binv2 = torch.where(fl[:, :, None], binv, binv_new)
+        xb2 = torch.where(fl, xb_new, xb_pivot)
+        gamma2 = torch.where(fl, st.gamma, gamma_piv)
+
+        # Keep the pre-step state when this step finished the lane or when
+        # the lane was already done (or frozen at its cap).
+        skip = st.done | frozen
+        keep = (finished | skip)[:, None]
+        return _State(
+            basis=torch.where(keep, basis, basis2),
+            in_basis=torch.where(keep, in_basis, in_basis2),
+            at_upper=torch.where(keep, at_upper, at_upper2),
+            binv=torch.where(keep[:, :, None], binv, binv2),
+            xb=torch.where(keep, xb, xb2),
+            gamma=torch.where(keep, st.gamma, gamma2),
+            it=torch.where(skip, st.it, st.it + 1),
+            stall=torch.where(skip, st.stall, stall_new),
+            done=st.done | (finished & ~frozen),
+            status=torch.where(skip, st.status, status_new),
+        )
+
+    # One refactorization per ``chunk`` pivots (the JAX loop's cadence).
+    chunk = max(8, min(refac_every, m))
+    while True:
+        active = ~st.done & (st.it < max_iter)
+        if not bool(torch.any(active)):
+            break
+        frozen = ~active
+        for _ in range(chunk):
+            st = body(st, frozen)
+            if bool(torch.all(st.done | frozen)):
+                break
+        binv_ = refactorize(A, st.basis)
+        xn_full = _nonbasic_values(lo, up, st.at_upper, st.in_basis)
+        xb_ = _compute_xb(A, b, binv_, xn_full)
+        a3 = active[:, None]
+        st = st._replace(binv=torch.where(a3[:, :, None], binv_, st.binv),
+                         xb=torch.where(a3, xb_, st.xb))
+
+    final = st
+    status = torch.where(final.done, final.status,
+                         torch.full_like(final.status, STATUS_ITER_LIMIT))
+
+    # ---- clean final quantities from a refactorization of the basis -----
+    binv = refactorize(A, final.basis)
+    xn_full = _nonbasic_values(lo, up, final.at_upper, final.in_basis)
+    xb = _compute_xb(A, b, binv, xn_full)
+    x_full = xn_full.scatter(1, final.basis, xb)
+
+    cb = torch.gather(c, 1, final.basis)
+    pi = torch.einsum("bi,bij->bj", cb, binv)                     # [B, m]
+    dj_full = c - pi @ A
+    obj = torch.sum(c * x_full, dim=1)
+
+    # Farkas ray for infeasible LPs: the phase-1 multipliers.
+    lo_b = torch.gather(lo, 1, final.basis)
+    up_b = torch.gather(up, 1, final.basis)
+    cb1 = torch.where(xb < lo_b - 1e-7, -one,
+                      torch.where(xb > up_b + 1e-7, one, 0 * one))
+    farkas = torch.einsum("bi,bij->bj", cb1, binv)
+    farkas = torch.where((status == STATUS_INFEASIBLE)[:, None], farkas,
+                         0 * one)
+
+    cstat_full = torch.where(
+        final.in_basis, BASIC,
+        torch.where(free_all, FREE_NB,
+                    torch.where(final.at_upper, AT_UPPER, AT_LOWER)))
+
+    # Non-finite guard, then the independent dual certification.
+    ok_num = torch.isfinite(obj) & torch.all(torch.isfinite(pi), dim=1)
+    status = torch.where(ok_num, status,
+                         torch.full_like(status, STATUS_ITER_LIMIT))
+    status = _certify_optimal(status, dj_full, final.in_basis,
+                              final.at_upper, lo, up, c, tol)
+
+    return LPResult(
+        status=status, obj=obj, y=x_full[:, :n], pi=pi, dj=dj_full[:, :n],
+        cstat=cstat_full[:, :n], rstat=cstat_full[:, n:],
+        basis=final.basis, binv=binv, iters=final.it, farkas=farkas,
+    )

@@ -1,0 +1,218 @@
+"""Replication driver: the ``algo()`` / ``solveCell()`` equivalent.
+
+Reference: algo.c.  ``SDSolver`` stages one problem on the device and runs
+replications: SD iterations (core/step.py) until the statistical stop
+(pre-test, then the bootstrap full test, optimal.c) or MAX_ITER.  Each
+replication draws from its own ``torch.Generator`` pair seeded from
+RUN_SEED.  Out-of-sample evaluation, checkpoints, metrics and meshes are not
+part of this slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from stochasticdecomposition_torch.config import SDConfig
+from stochasticdecomposition_torch.core.state import (
+    Capacities, derive_capacities, estimate_pool_bytes, init_state,
+    stage_problem,
+)
+from stochasticdecomposition_torch.core.step import make_step
+from stochasticdecomposition_torch.core.stopping import (
+    bootstrap_draws, full_test, pre_test,
+)
+from stochasticdecomposition_torch.device import resolve_device
+from stochasticdecomposition_torch.ops.simplex import (
+    STATUS_OPTIMAL, lane, solve_lp,
+)
+from stochasticdecomposition_torch.prob import StagedProblem
+from stochasticdecomposition_torch.sampler import build_sampler
+
+
+def check_pool_overflow(omega_cnt: int, lambda_cnt: int, sigma_cnt: int,
+                        caps: Capacities, rep: int | None = None) -> None:
+    """Pool-overflow detection: an overflowed omega pool corrupts the
+    sample stream (raise); overflowed lambda/sigma pools only weaken cuts
+    (warn)."""
+    tag = "" if rep is None else f"replication {rep}: "
+    if omega_cnt > caps.O:
+        raise RuntimeError(
+            f"{tag}omega pool overflowed its capacity ({omega_cnt} > "
+            f"{caps.O}): observations past capacity were dropped, "
+            "corrupting the sample stream.  Raise MAX_OMEGA.")
+    if lambda_cnt > caps.L or sigma_cnt > caps.S:
+        warnings.warn(
+            f"{tag}dual-vertex pools overflowed (lambda {lambda_cnt}/"
+            f"{caps.L}, sigma {sigma_cnt}/{caps.S}): vertices past "
+            "capacity were dropped.  Cuts remain valid lower bounds but "
+            "are weaker; raise MAX_LAMBDA/MAX_SIGMA for full strength.",
+            RuntimeWarning, stacklevel=3)
+
+
+@dataclasses.dataclass
+class ReplicationResult:
+    rep: int
+    iterations: int
+    incumb_x: np.ndarray
+    incumb_est: float           # lower-bound estimate at termination
+    optimal: bool               # stopped by the statistical test (vs MAX_ITER)
+    lp_count: int
+    unique_omegas: int
+    pool_sizes: dict
+    time_total: float
+    time_setup: float
+    quad_scalar: float = 0.0
+    cuts_active: int = 0
+    full_tests: int = 0
+    lp_pivots: int = 0          # simplex pivots over all subproblem solves
+    qp_iters: int = 0           # interior-point iterations over all masters
+    master_failures: int = 0    # uncertified master solves (run continued)
+
+
+def mean_value_solution(sp: StagedProblem, device: torch.device,
+                        dtype=torch.float64) -> np.ndarray:
+    """Solve the deterministic mean-value LP; its first-stage part seeds the
+    initial candidate/incumbent (meanProblem at setup.c:21, used as xk)."""
+    f, s = sp.first, sp.second
+    m1, n1 = f.A.shape
+    m2, n2 = s.D.shape
+    A = np.zeros((m1 + m2, n1 + n2))
+    A[:m1, :n1] = f.A
+    A[m1:, :n1] = s.C_bar
+    A[m1:, n1:] = s.D
+    b = np.concatenate([f.b, s.b_bar])
+    sense = np.concatenate([f.sense, s.sense]).astype(np.int64)
+    c = np.concatenate([f.c, s.d_bar])
+    lo = np.concatenate([f.lb, s.lb])
+    hi = np.concatenate([f.ub, s.ub])
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    out = lane(solve_lp(t(A), t(sense, torch.int64), t(c)[None], t(lo),
+                        t(hi), t(b)[None],
+                        max_iter=12 * (A.shape[0] + A.shape[1]) + 256), 0)
+    if int(out.status) != STATUS_OPTIMAL:
+        raise RuntimeError(
+            f"mean-value problem not optimal (status {int(out.status)})")
+    return out.y[:n1].cpu().numpy()
+
+
+def replication_generators(seed: int, device: torch.device):
+    """Two independent generators from one RUN_SEED: observations, and the
+    bootstrap's resampling."""
+    gens = []
+    for child in np.random.SeedSequence(int(seed)).spawn(2):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(child.generate_state(1, np.uint64)[0] >> 1))
+        gens.append(g)
+    return gens
+
+
+class SDSolver:
+    """Solver bound to one staged problem, configuration and device.
+
+    ``device=None`` runs on the CUDA card and raises if there is none; the
+    CPU must be asked for (``device="cpu"``)."""
+
+    def __init__(self, sp: StagedProblem, cfg: SDConfig, device=None,
+                 dtype=torch.float64):
+        self.device = resolve_device(device)
+        self.sp = sp
+        self.cfg = cfg
+        if cfg.LOWER_BOUND is not None:
+            sp.lb = float(cfg.LOWER_BOUND)
+            sp.lb_is_trivial = sp.lb == 0.0
+        stoc = getattr(sp, "_stoc", None)
+        if stoc is None:
+            raise ValueError(
+                "StagedProblem lacks attached stoch data; use prob.attach_stoc "
+                "so the sampler can be built")
+        self.pa = stage_problem(sp, self.device, dtype)
+        self.spec = build_sampler(stoc, sp.rv_order, self.device)
+        self.step = make_step(self.pa, self.spec, cfg)
+        self.caps = derive_capacities(sp, cfg)
+        self.pool_bytes = estimate_pool_bytes(sp, self.caps, cfg)
+        self.mean_sol = mean_value_solution(sp, self.device, dtype)
+
+    def solve_replication(self, rep: int = 0, log=lambda s: None
+                          ) -> ReplicationResult:
+        cfg = self.cfg
+        t0 = time.monotonic()
+        gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
+        state = init_state(self.pa, self.caps, cfg, self.mean_sol)
+        t_setup = time.monotonic() - t0
+
+        optimal = False
+        n_full_tests = 0
+        master_fails = 0
+        master_failures = 0
+        while state.k < cfg.MAX_ITER:
+            k = state.k
+            # Optimality gate (optimal.c:23-42): min iterations + stable duals
+            # + pre-test, then the bootstrap full test.
+            if k > cfg.MIN_ITER and state.dual_stable and pre_test(
+                    float(state.candid_est), float(state.incumb_est),
+                    cfg.PRE_EPSILON):
+                n_full_tests += 1
+                draws = bootstrap_draws(state, boot_gen, cfg.BOOTSTRAP_REP)
+                if full_test(self.pa, cfg, state, draws):
+                    optimal = True
+                    log(">")
+                    break
+                log(".")
+            state = self.step(state, gen)
+            if not state.sp_feas:
+                raise NotImplementedError(
+                    f"an infeasible subproblem at k={state.k} needs "
+                    "feasibility mode (resolveInfeasibility), which is not "
+                    "ported yet")
+            if not state.cut_ok:
+                # istar < 0: the hard error of the reference (cuts.c:136-139).
+                raise RuntimeError(
+                    f"SD cut formation failed at k={state.k}: no valid "
+                    "dual vertex for some observation")
+            if not state.master_ok:
+                # Continue with the uncertified iterate (still a feasible
+                # d-space point); raise only when certification fails for
+                # 5 consecutive iterations, as the JAX package does.
+                master_fails += 1
+                master_failures += 1
+                log("!")
+                if master_fails >= 5:
+                    raise RuntimeError(
+                        f"master QP failed to converge at k={state.k} "
+                        "(5 consecutive iterations)")
+                state = state._replace(master_ok=True)
+            else:
+                master_fails = 0
+            if k % 100 == 0:
+                log(f"\nIteration-{k:4d}: ")
+
+        check_pool_overflow(state.omega_cnt, state.lambda_cnt,
+                            state.sigma_cnt, self.caps, rep)
+        n_cuts = int(torch.sum(state.cut_mask))
+        return ReplicationResult(
+            rep=rep,
+            iterations=state.k,
+            incumb_x=state.incumb_x.cpu().numpy(),
+            incumb_est=float(state.incumb_est),
+            optimal=optimal,
+            lp_count=state.lp_cnt,
+            unique_omegas=state.omega_cnt,
+            pool_sizes=dict(omega=state.omega_cnt, lam=state.lambda_cnt,
+                            sigma=state.sigma_cnt, cuts=n_cuts),
+            time_total=time.monotonic() - t0,
+            time_setup=t_setup,
+            quad_scalar=float(state.quad_scalar),
+            cuts_active=n_cuts,
+            full_tests=n_full_tests,
+            lp_pivots=state.lp_pivots,
+            qp_iters=state.qp_iters,
+            master_failures=master_failures,
+        )
