@@ -10,9 +10,20 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
   1. build    — builds the kernel library from csrc/ with nvcc if missing.
   2. kernel   — the triple masked argmax kernel against its plain PyTorch
                 version on f64 data from a numpy seed, at the main path's
-                shapes up to the default (7501, 5120), plus empty masks,
-                all-equal H and NaN cases: all six outputs must be equal.
-                Kernel, plain version and memory bound timed at (7501, 5120).
+                shapes up to the default (7501, 5120): random masks, empty
+                masks, all-equal H and NaN, and the edge cases of
+                ops/argmax_cases.py (pool prefixes of 64 and 512 rows, a
+                selected -inf, selected -1e300, NaN in unselected rows, NaN
+                and ties across split boundaries, a row tile and a split no
+                mask selects), under the default split and, at (3000, 1024),
+                under 2 and 40 S-splits and with cp.async copies: all six outputs
+                must be equal.  Timed at (7501, 5120) with random masks (the
+                full table) and with the pool prefixes: the median of 30
+                launches, each between its own CUDA events after a 512 MB
+                write that flushes L2 and a spin that keeps the card ahead
+                of the host, beside the bytes bound of the rows the masks
+                select; one case cross-checked with
+                torch.profiler's device time of the kernel.
   3. lands    — batch-1 SD at the default SDConfig (MAX_ITER=5000 pool
                 capacities, no evaluation) to the certified stop; exact gap
                 of the incumbent against the extensive-form optimum.
@@ -39,6 +50,9 @@ STORM_ITERS = 24
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 ARGMAX_SHAPES = [(37, 128), (300, 256), (3000, 1024), (1001, 777),
                  (7501, 5120)]
+PREFIXES = (64, 512)             # pool-prefix cases, rows selected
+TIMED_REPS = 30
+FLUSH_BYTES = 512 * 2 ** 20      # > the 50 MB L2; keeps the card ahead
 
 
 def emit(obj) -> None:
@@ -58,70 +72,122 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after a warm-up."""
+def cuda_ms(fn, reps: int, flush) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` launches, each between its
+    own pair of CUDA events, after a write of ``flush`` (which empties L2 of
+    the inputs, as the main path's height_table does) and a ~0.5 ms spin
+    that keeps the card busy while the host enqueues ``fn``, after a
+    warm-up."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    pairs = []
+    for i in range(reps):
+        flush.fill_(i)
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        pairs.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def argmax_cases(rng, S, O, dev):
-    """Random f64 heights with random masks, plus the edge cases."""
-    H = torch.as_tensor(rng.standard_normal((S, O)) * 100.0, device=dev)
-    masks = [torch.as_tensor(rng.random(S) < p, device=dev)
-             for p in (0.9, 0.5, 0.3)]
-    yield "random", H, masks
-    none = torch.zeros(S, dtype=torch.bool, device=dev)
-    yield "empty", H, [none, masks[1], none]
-    yield "ties", torch.full((S, O), 3.25, dtype=torch.float64, device=dev), \
-        [torch.ones(S, dtype=torch.bool, device=dev), masks[1], masks[2]]
-    Hn = H.clone()
-    Hn[S // 2, :] = float("nan")
-    Hn[S // 3, ::2] = float("nan")
-    yield "nan", Hn, masks
+def profiler_ms(fn, reps: int, flush) -> float:
+    """The kernel's own device time per launch under torch.profiler (a
+    profiling session now and then records no kernel: up to three)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                flush.fill_(i)
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "argmax_kernel" in e.key:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                return float(us) / 1e3 / e.count
+    fail("torch.profiler saw no argmax kernel in three sessions")
+
+
+def same(g, w) -> bool:
+    """Exact equality, NaN matching NaN."""
+    return g.dtype == w.dtype and g.shape == w.shape and bool(
+        torch.all((g == w) | (torch.isnan(g) & torch.isnan(w))))
+
+
+def bound_ms(masks, O) -> tuple:
+    """The bytes the function must move — the rows some mask selects, read
+    once, the three masks and the six [O] outputs — over the HBM rate;
+    n_sel is counted on the host from the masks."""
+    n_sel = int(np.count_nonzero(masks[0] | masks[1] | masks[2]))
+    S = masks[0].shape[0]
+    nbytes = n_sel * O * 8 + 3 * S + 48 * O
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, n_sel
 
 
 def phase_kernel(dev):
-    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.ops import argmax, argmax_cases
 
     rng = np.random.default_rng(20261017)
     checked = 0
     max_err = 0.0
     for S, O in ARGMAX_SHAPES:
-        for case, H, masks in argmax_cases(rng, S, O, dev):
-            got = argmax.triple_masked_argmax(H, *masks)
-            want = argmax.triple_masked_argmax_plain(H, *masks)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                # Exact equality, NaN matching NaN.
-                same = g.dtype == w.dtype and g.shape == w.shape and bool(
-                    torch.all((g == w) | (torch.isnan(g) & torch.isnan(w))))
-                if not same:
-                    fail(f"argmax kernel differs from its plain version at "
-                         f"{(S, O)} case {case}")
-                both = torch.isfinite(g) & torch.isfinite(w)
-                if g.is_floating_point() and bool(torch.any(both)):
-                    max_err = max(max_err,
-                                  float(torch.amax(torch.abs(g - w)[both])))
-            checked += 1
+        plans = [None]
+        if (S, O) == (3000, 1024):
+            plans += [argmax.split_plan(S, O, n_splits=2),
+                      argmax.split_plan(S, O, n_splits=40),
+                      argmax.split_plan(S, O, aligned=False)]
+        for plan in plans:
+            splits = (plan or argmax.split_plan(S, O)).n_splits
+            for case, H, masks in argmax_cases.cases(rng, S, O, splits,
+                                                     PREFIXES):
+                H = torch.as_tensor(H, device=dev)
+                masks = [torch.as_tensor(m, device=dev) for m in masks]
+                got = argmax.triple_masked_argmax(H, *masks, plan=plan)
+                want = argmax.triple_masked_argmax_plain(H, *masks)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if not same(g, w):
+                        fail(f"argmax kernel differs from its plain version "
+                             f"at {(S, O)} case {case} plan {plan}")
+                    both = torch.isfinite(g) & torch.isfinite(w)
+                    if g.is_floating_point() and bool(torch.any(both)):
+                        max_err = max(max_err, float(
+                            torch.amax(torch.abs(g - w)[both])))
+                checked += 1
+
     S, O = ARGMAX_SHAPES[-1]
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     H = torch.as_tensor(rng.standard_normal((S, O)), device=dev)
-    masks = [torch.as_tensor(rng.random(S) < p, device=dev)
-             for p in (0.9, 0.5, 0.3)]
-    ms = cuda_ms(lambda: argmax.triple_masked_argmax(H, *masks), 20)
-    plain_ms = cuda_ms(lambda: argmax.triple_masked_argmax_plain(H, *masks), 5)
-    nbytes = S * O * 8 + 3 * S + 3 * O * (8 + 8)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"cases": checked, "shape": [S, O], "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "GBps": nbytes / (ms * 1e-3) / 1e9, "bytes": nbytes}
+    timed = {"full": argmax_cases.random_masks(rng, S)}
+    for n in PREFIXES:
+        timed[f"prefix{n}"] = list(argmax_cases.prefix_masks(S, n))
+    out = {"cases": checked, "shape": [S, O], "max_abs_err": max_err,
+           "plan": argmax.split_plan(S, O)._asdict(), "timed": {}}
+    for name, np_masks in timed.items():
+        b_ms, nbytes, n_sel = bound_ms(np_masks, O)
+        masks = [torch.as_tensor(m, device=dev) for m in np_masks]
+        ms = cuda_ms(lambda: argmax.triple_masked_argmax(H, *masks),
+                     TIMED_REPS, flush)
+        row = {"n_sel": n_sel, "ms": ms, "bound_ms": b_ms, "bytes": nbytes,
+               "GBps": nbytes / (ms * 1e-3) / 1e9,
+               "bound_share": b_ms / ms}
+        if name == "full":
+            row["plain_ms"] = cuda_ms(
+                lambda: argmax.triple_masked_argmax_plain(H, *masks),
+                TIMED_REPS, flush)
+            row["profiler_ms"] = profiler_ms(
+                lambda: argmax.triple_masked_argmax(H, *masks), 10, flush)
+        out["timed"][name] = row
+    return out
 
 
 def run_sd(name, dev, cfg):
@@ -217,10 +283,12 @@ def main() -> None:
     t = time.monotonic()
     build_s = kernels.build()
     kernels.library()
+    ptxas = [ln.strip() for ln in kernels.LOG_PATH.read_text().splitlines()
+             if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "nvcc_seconds": build_s,
           "library": str(kernels.LIB_PATH.relative_to(
               kernels.LIB_PATH.parents[2])),
-          "seconds": time.monotonic() - t})
+          "ptxas": ptxas, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
     kern = phase_kernel(dev)
@@ -240,14 +308,19 @@ def main() -> None:
 
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
     print(smi, flush=True)
+    full = kern["timed"]["full"]
     emit({"kernels": [{
         "name": "triple_masked_argmax", "route": "cuda",
         "source": "stochasticdecomposition_torch/csrc/triple_argmax.cu",
         "replaces": "stochasticdecomposition_tpu/ops/pallas_argmax.py:191",
         "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]})
+        "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "prefix_ms": {str(n): kern["timed"][f"prefix{n}"]["ms"]
+                      for n in PREFIXES},
+        "prefix_bound_ms": {str(n): kern["timed"][f"prefix{n}"]["bound_ms"]
+                            for n in PREFIXES}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

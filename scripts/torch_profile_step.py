@@ -4,8 +4,9 @@ Runs the port's batch-1 SD at the default pool capacities on one instance
 for a warm-up, then ``--iters`` more iterations under ``torch.profiler``
 (CPU and CUDA activities), and prints JSON lines: the wall seconds per
 iteration, the device busy time per iteration (sum of CUDA kernel time),
-the device's idle share, and the top kernels by device time and the top
-operators by host time.
+the device's idle share, the triple masked argmax kernel's launches and
+device time per launch (with the sigma pool's size at the end), and the top
+kernels by device time and the top operators by host time.
 
     python3 scripts/torch_profile_step.py --instance lands --iters 40
     python3 scripts/torch_profile_step.py --instance stormlike --iters 6
@@ -100,6 +101,13 @@ def main():
         "pivots_per_iter": (state.lp_pivots - pivots0) / n,
         "ipm_iters_per_iter": (state.qp_iters - qp0) / n,
         "note": "wall includes profiler overhead"}), flush=True)
+    argmax = [e for e in kernels if "triple_argmax" in e.key]
+    calls = sum(e.count for e in argmax)
+    print(json.dumps({"argmax_kernel": {
+        "calls": calls, "calls_per_iter": calls / n,
+        "device_ms_per_launch": sum(_device_us(e) for e in argmax) / 1e3 /
+        max(calls, 1),
+        "sigma_cnt_end": int(state.sigma_cnt)}}), flush=True)
     by_dev = sorted(kernels, key=_device_us, reverse=True)[:args.top]
     print(json.dumps({"top_device": [
         {"name": e.key[:60], "calls": e.count,

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` (``-gencode
-arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC``) and linked
-with ``-shared`` into one library with a plain C interface,
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -Xptxas -v``)
+and linked with ``-shared`` into one library with a plain C interface,
 ``_build/libsd_kernels.so`` inside the package, at first use (never at
-import).  The library is rebuilt when a source is
-newer than it.  It is loaded with ``ctypes``; each wrapper passes tensor
-pointers and PyTorch's current stream as ``c_void_p``.
+import).  The library is rebuilt when a source is newer than it; the
+compiler's output (``ptxas``'s registers, shared memory and spills per
+kernel) is kept in ``_build/nvcc.log``.  It is loaded with ``ctypes``; each
+wrapper passes tensor pointers and PyTorch's current stream as
+``c_void_p``.  No ``-lcuda``: the TMA tensor map is encoded through the
+runtime's driver entry point (``cudaGetDriverEntryPoint``).
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libsd_kernels.so"
+LOG_PATH = BUILD_DIR / "nvcc.log"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -65,11 +69,13 @@ def build() -> float:
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         objs.append(obj)
-    failed = []
+    failed, log = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        log.append(f"{' '.join(cmd)}\n{out}")
         if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{out}")
+            failed.append(log[-1])
+    LOG_PATH.write_text("\n".join(log))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = BUILD_DIR / f"libsd_kernels.{tag}.so"
@@ -92,7 +98,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(LIB_PATH))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn = lib.sd_triple_masked_argmax
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 10
         fn.restype = ci
         _lib = lib
     return _lib
