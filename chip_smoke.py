@@ -28,8 +28,29 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 capacities, no evaluation) to the certified stop; exact gap
                 of the incumbent against the extensive-form optimum.
   4. pgp2like — the same.
-  5. stormlike — default capacities, a fixed 24 iterations: every LP
+  5. stormlike — default capacities, a fixed 12 iterations: every LP
                 optimal, every cut and master solve certified.
+  6. randc    — random technology coefficients (parse_synthetic with
+                rand_C=2) at the default capacities to the certified stop:
+                the [L, O, 2] delta_piC table (614 MB), peak memory, exact
+                gap against the extensive form.
+  7. lands_b16, pgp2like_b64 — SAMPLE_INCREMENT 16 and 64 to the certified
+                stop through ``SDSolver.run`` with EVAL_FLAG on (the
+                evaluation is reported by phase 9); pool capacities from the
+                finite support, MAX_ITER (samples) raised so a stop is in
+                reach; exact gap.
+  8. stormlike_b8 — 6 steps at SAMPLE_INCREMENT 8 at full width: seconds
+                per step, LPs/s, pivots per LP and per lane (max, median);
+                every master certified.
+  9. eval     — the upper-bound estimates of phase 7's runs (within 1 % of
+                the incumbent's exact objective) and a fixed 2 x 512 lanes
+                on the stormlike_b8 incumbent: UB, CI, count, dropped
+                lanes, LPs/s and pivots/s.
+
+Every SD phase sets the argmax kernel's launch count to 0 just before it
+drives the path and requires, just after, as many launches as cuts formed;
+it then times the kernel on the height table of its final state (the n_sel
+its pools reached) and holds it there against the plain version.
 
 Then a line with the card as nvidia-smi gives it, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.
@@ -46,7 +67,12 @@ import torch
 # Extensive-form optima of the finite-support instances (RESULTS.md §1).
 OPTIMA = {"lands": 382.0222, "pgp2like": 113.3000}
 GAP_LIMIT = 0.01
-STORM_ITERS = 24
+STORM_ITERS = 12
+STORM_B8_STEPS = 6
+EVAL_LIMIT = 0.01                # UB against the exact objective
+STORM_EVAL_LANES = 512
+# Random-C instance (the JAX package's tests/test_e2e.py:52).
+RANDC = dict(seed=2, n_rv=2, support=2, rand_C=2, n2=6, m2=4)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 ARGMAX_SHAPES = [(37, 128), (300, 256), (3000, 1024), (1001, 777),
                  (7501, 5120)]
@@ -190,64 +216,146 @@ def phase_kernel(dev):
     return out
 
 
-def run_sd(name, dev, cfg):
-    """One replication through SDSolver, the user's entry point; returns
-    (solver, result, kernel launches during the run)."""
+class Recorder:
+    """``metrics`` for ``SDSolver.solve_replication``: keeps the last state
+    and, if asked, each step's per-lane pivots."""
+
+    def __init__(self, lanes: bool = False):
+        self.last = None
+        self.lanes = [] if lanes else None
+        self.times = [time.monotonic()]
+
+    def record(self, state):
+        self.last = state
+        if self.lanes is not None and state.lane_iters is not None:
+            self.lanes.append(state.lane_iters.cpu().numpy())
+            self.times.append(time.monotonic())
+
+
+def load_problem(name):
     from stochasticdecomposition_torch.models.instances import load_instance
     from stochasticdecomposition_torch.models.suite import load_suite_instance
-    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.models.synthetic import parse_synthetic
     from stochasticdecomposition_torch.prob import attach_stoc, decompose
+
+    if name == "randc":
+        core, tim, stoc = parse_synthetic(**RANDC)
+    else:
+        load = load_instance if name in OPTIMA else load_suite_instance
+        core, tim, stoc = load(name)
+    return attach_stoc(decompose(core, tim, stoc), stoc)
+
+
+def run_sd(name, dev, cfg, lanes=False, evaluate=False):
+    """One replication through SDSolver, the user's entry point (``run``,
+    with its evaluation, when ``evaluate``); returns (solver, result,
+    kernel launches during the run, recorder)."""
+    from stochasticdecomposition_torch.ops import argmax
     from stochasticdecomposition_torch.runner import SDSolver
 
-    load = load_instance if name in OPTIMA else load_suite_instance
-    core, tim, stoc = load(name)
-    sp = attach_stoc(decompose(core, tim, stoc), stoc)
-    solver = SDSolver(sp, cfg, device=dev)
+    solver = SDSolver(load_problem(name), cfg, device=dev)
+    rec = Recorder(lanes)
     argmax.launches = 0
-    res = solver.solve_replication(0)
+    if evaluate:
+        t = time.monotonic()
+        res = solver.run(metrics=rec).replications[0]
+        torch.cuda.synchronize()
+        rec.eval_seconds = time.monotonic() - t - res.time_total
+    else:
+        res = solver.solve_replication(0, metrics=rec)
     torch.cuda.synchronize()
-    return solver, res, argmax.launches
+    launches = argmax.launches
+    if launches != res.cuts_formed:
+        fail(f"{name}: {launches} kernel launches for {res.cuts_formed} "
+             "cuts formed")
+    return solver, res, launches, rec
 
 
-def phase_to_stop(name, dev):
-    from stochasticdecomposition_torch.config import SDConfig
+def kernel_at_stop(solver, state, flush):
+    """The argmax kernel on the height table of the final state: its time,
+    the plain version's, the n_sel bound, and exact agreement."""
+    import math
+
+    from stochasticdecomposition_torch.core.cuts import height_table
+    from stochasticdecomposition_torch.ops import argmax
+
+    H, s_valid, _ = height_table(solver.pa, state, state.candid_x)
+    k = state.k
+    ns_eff = k - math.floor(0.1 * float(k) + 1)
+    masks = [s_valid, s_valid & (state.sigma_ck <= ns_eff),
+             s_valid & (state.sigma_ck > ns_eff)]
+    before = argmax.launches
+    got = argmax.triple_masked_argmax(H, *masks)
+    want = argmax.triple_masked_argmax_plain(H, *masks)
+    torch.cuda.synchronize()
+    if not all(same(g, w) for g, w in zip(got, want)):
+        fail("argmax kernel differs from its plain version at the stop")
+    ms = cuda_ms(lambda: argmax.triple_masked_argmax(H, *masks),
+                 TIMED_REPS, flush)
+    plain = cuda_ms(lambda: argmax.triple_masked_argmax_plain(H, *masks),
+                    5, flush)
+    argmax.launches = before
+    b_ms, nbytes, n_sel = bound_ms([m.cpu().numpy() for m in masks],
+                                   H.shape[1])
+    return {"shape": list(H.shape), "n_sel": n_sel, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bytes": nbytes}
+
+
+def exact_check(solver, name, x):
+    """(exact objective at x, the optimum, exact gap) by enumeration of the
+    finite support."""
     from stochasticdecomposition_torch.models.extensive import (
-        enumerate_scenarios, exact_objective_fn,
+        enumerate_scenarios, exact_objective_fn, solve_extensive_form,
     )
 
-    solver, res, launches = run_sd(name, dev, SDConfig(EVAL_FLAG=False))
     outs, probs = enumerate_scenarios(solver.sp._stoc, solver.sp.rv_order)
-    exact = exact_objective_fn(solver.pa, outs, probs)(res.incumb_x)
-    gap = abs(exact - OPTIMA[name]) / abs(OPTIMA[name])
-    out = {"stop_iteration": res.iterations, "certified": res.optimal,
+    exact = exact_objective_fn(solver.pa, outs, probs)(x)
+    opt = OPTIMA[name] if name in OPTIMA else \
+        solve_extensive_form(solver.sp, outs, probs)[0]
+    return exact, opt, abs(exact - opt) / abs(opt)
+
+
+def phase_to_stop(name, dev, cfg, flush, evaluate=False):
+    """SD to the certified stop; returns (JSON fields, solver, result)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver, res, launches, rec = run_sd(name, dev, cfg, evaluate=evaluate)
+    exact, opt, gap = exact_check(solver, name, res.incumb_x)
+    batch = cfg.SAMPLE_INCREMENT
+    out = {"sample_increment": batch, "stop_iteration": res.iterations,
+           "steps": res.iterations // batch, "certified": res.optimal,
            "sd_seconds": res.time_total, "launches": launches,
-           "cuts_formed": res.lp_count, "exact_objective": exact,
-           "optimum": OPTIMA[name], "exact_gap": gap,
+           "cuts_formed": res.cuts_formed, "lps": res.lp_count,
+           "exact_objective": exact, "optimum": opt, "exact_gap": gap,
            "incumb_est": res.incumb_est, "pools": res.pool_sizes,
            "caps": solver.caps._asdict(), "full_tests": res.full_tests,
            "master_failures": res.master_failures,
            "pivots_per_lp": res.lp_pivots / max(res.lp_count, 1),
-           "ipm_iters_per_master": res.qp_iters / max(res.iterations, 1)}
+           "ipm_iters_per_master": res.qp_iters / max(res.iterations //
+                                                      batch, 1),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
     if not res.optimal:
         fail(f"{name}: no certified stop before MAX_ITER ({out})")
     if gap > GAP_LIMIT:
         fail(f"{name}: exact gap {gap} exceeds {GAP_LIMIT} ({out})")
-    if launches <= 0 or launches < res.lp_count:
-        fail(f"{name}: {launches} kernel launches for {res.lp_count} cuts")
-    return out
+    if launches <= 0:
+        fail(f"{name}: the argmax kernel was never launched")
+    if rec.last is not None:
+        out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out, solver, res, rec
 
 
-def phase_storm(dev):
+def phase_storm(dev, flush):
     from stochasticdecomposition_torch.config import SDConfig
 
     # The default configuration's pool capacities (MAX_ITER=5000:
     # O=5120, L=S=7501), run for a fixed number of iterations.
     cfg = SDConfig(EVAL_FLAG=False, MAX_ITER=STORM_ITERS, MAX_OMEGA=5001,
                    MAX_LAMBDA=7501, MAX_SIGMA=7501)
-    solver, res, launches = run_sd("stormlike", dev, cfg)
+    solver, res, launches, rec = run_sd("stormlike", dev, cfg)
     out = {"iterations": res.iterations, "sd_seconds": res.time_total,
            "seconds_per_iteration": res.time_total / max(res.iterations, 1),
-           "launches": launches, "lps": res.lp_count,
+           "launches": launches, "cuts_formed": res.cuts_formed,
+           "lps": res.lp_count,
            "pivots_per_lp": res.lp_pivots / max(res.lp_count, 1),
            "ipm_iters_per_master": res.qp_iters / max(res.iterations, 1),
            "master_failures": res.master_failures,
@@ -262,13 +370,82 @@ def phase_storm(dev):
         fail("stormlike: the argmax kernel was never launched")
     if not np.all(np.isfinite(res.incumb_x)):
         fail("stormlike: non-finite incumbent")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
     return out
+
+
+def phase_storm_b8(dev, flush):
+    from stochasticdecomposition_torch.config import SDConfig
+
+    B = 8
+    cfg = SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=B,
+                   MAX_ITER=STORM_B8_STEPS * B, MAX_OMEGA=5001,
+                   MAX_LAMBDA=7501, MAX_SIGMA=7501)
+    solver, res, launches, rec = run_sd("stormlike", dev, cfg, lanes=True)
+    steps = res.iterations // B
+    lane_pivots = np.concatenate(rec.lanes)
+    step_s = np.diff(rec.times)
+    per_step_max = [int(np.max(x)) for x in rec.lanes]
+    out = {"sample_increment": B, "samples": res.iterations, "steps": steps,
+           "sd_seconds": res.time_total,
+           "setup_seconds": res.time_setup,
+           "seconds_per_step": (res.time_total - res.time_setup) /
+           max(steps, 1),
+           "step_seconds": step_s.tolist(),
+           "warm_step_seconds_median": float(np.median(step_s[1:])),
+           "lps": res.lp_count,
+           "lps_per_second": res.lp_count / max(
+               res.time_total - res.time_setup, 1e-9),
+           "pivots_per_lp": res.lp_pivots / max(res.lp_count, 1),
+           "lane_pivots_max": int(np.max(lane_pivots)),
+           "lane_pivots_median": float(np.median(lane_pivots)),
+           "lane_pivots_max_per_step": per_step_max,
+           "lane_pivots_median_per_step": [float(np.median(x))
+                                           for x in rec.lanes],
+           "launches": launches, "cuts_formed": res.cuts_formed,
+           "ipm_iters_per_master": res.qp_iters / max(steps, 1),
+           "master_failures": res.master_failures,
+           "incumb_est": res.incumb_est, "pools": res.pool_sizes}
+    if steps != STORM_B8_STEPS:
+        fail(f"stormlike_b8 ran {steps} of {STORM_B8_STEPS} steps")
+    if res.master_failures:
+        fail(f"stormlike_b8: {res.master_failures} uncertified masters")
+    if not np.all(np.isfinite(res.incumb_x)):
+        fail("stormlike_b8: non-finite incumbent")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out, solver, res
+
+
+def eval_fields(solver, ev, seconds):
+    """The evaluation's JSON fields; LPs and pivots count the lanes and the
+    mean-observation solve."""
+    fn = solver.eval_batch_fn
+    lps = ev.count + ev.dropped + 1
+    pivots = fn.pivots + fn.base_pivots
+    return {"ub": ev.mean, "ci": [ev.ci_low, ev.ci_high], "stdev": ev.stdev,
+            "error": ev.error, "count": ev.count, "dropped": ev.dropped,
+            "seconds": seconds, "lps": lps,
+            "lps_per_second": lps / max(seconds, 1e-9),
+            "pivots": pivots, "base_pivots": fn.base_pivots,
+            "pivots_per_second": pivots / max(seconds, 1e-9)}
+
+
+def batched_cfg(name, batch):
+    """SAMPLE_INCREMENT ``batch`` with pools sized by the finite support
+    (omega) and a fixed 512 dual vertices, and room for a deep stop."""
+    from stochasticdecomposition_torch.config import SDConfig
+    from stochasticdecomposition_torch.models.extensive import scenario_count
+
+    n = scenario_count(load_problem(name)._stoc)
+    return SDConfig(EVAL_FLAG=True, SAMPLE_INCREMENT=batch, MAX_ITER=32768,
+                    MAX_OMEGA=n, MAX_LAMBDA=512, MAX_SIGMA=512)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: chip_smoke.py runs on a CUDA card")
     # The package must be importable from this checkout.
+    from stochasticdecomposition_torch.config import SDConfig
     from stochasticdecomposition_torch.ops import kernels
 
     t_all = time.monotonic()
@@ -293,18 +470,85 @@ def main() -> None:
     t = time.monotonic()
     kern = phase_kernel(dev)
     emit({"phase": "kernel", **kern, "seconds": time.monotonic() - t})
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
-    launches = 0
+    launches = {}
     for name in ("lands", "pgp2like"):
         t = time.monotonic()
-        out = phase_to_stop(name, dev)
-        launches += out["launches"]
+        out, _, _, _ = phase_to_stop(name, dev, SDConfig(EVAL_FLAG=False),
+                                     flush)
+        launches[name] = out["launches"]
         emit({"phase": name, **out, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    out = phase_storm(dev)
-    launches += out["launches"]
+    out = phase_storm(dev, flush)
+    launches["stormlike"] = out["launches"]
     emit({"phase": "stormlike", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out, solver, _, _ = phase_to_stop("randc", dev,
+                                      SDConfig(EVAL_FLAG=False), flush)
+    launches["randc"] = out["launches"]
+    out["delta_piC_bytes"] = solver.pool_bytes["delta_piC"]
+    emit({"phase": "randc", **out, "seconds": time.monotonic() - t})
+
+    evals = {}
+    for name, batch in (("lands", 16), ("pgp2like", 64)):
+        phase = f"{name}_b{batch}"
+        t = time.monotonic()
+        out, solver, res, rec = phase_to_stop(
+            name, dev, batched_cfg(name, batch), flush, evaluate=True)
+        launches[phase] = out["launches"]
+        emit({"phase": phase, **out, "seconds": time.monotonic() - t})
+        evals[name] = (solver, res, rec.eval_seconds)
+
+    t = time.monotonic()
+    out, storm, storm_res = phase_storm_b8(dev, flush)
+    launches["stormlike_b8"] = out["launches"]
+    emit({"phase": "stormlike_b8", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    ev_out = {}
+    for name, (solver, res, seconds) in evals.items():
+        ev = res.eval
+        exact, _, _ = exact_check(solver, name, res.incumb_x)
+        row = eval_fields(solver, ev, seconds)
+        row["exact_objective"] = exact
+        row["ub_vs_exact"] = abs(ev.mean - exact) / abs(exact)
+        ev_out[name] = row
+        if row["ub_vs_exact"] > EVAL_LIMIT:
+            fail(f"eval {name}: UB {ev.mean} is off the exact objective "
+                 f"{exact} by more than {EVAL_LIMIT}")
+        if not ev.count >= solver.cfg.EVAL_MIN_ITER:
+            fail(f"eval {name}: only {ev.count} observations")
+    # A fixed 2 x 512 lanes on stormlike (no early stop: EVAL_ERROR 0).
+    storm.cfg.EVAL_ERROR = 0.0
+    storm.cfg.EVAL_BATCH = STORM_EVAL_LANES
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_s = time.monotonic()
+    ev = storm.evaluate_x(storm_res.incumb_x,
+                          max_obs=2 * STORM_EVAL_LANES)
+    torch.cuda.synchronize()
+    row = eval_fields(storm, ev, time.monotonic() - t_s)
+    row["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # Again on the same draws: the mean observation's basis is kept, so
+    # this times the 2 x 512 lanes alone.
+    pivots = storm.eval_batch_fn.pivots
+    t_s = time.monotonic()
+    again = storm.evaluate_x(storm_res.incumb_x,
+                             max_obs=2 * STORM_EVAL_LANES)
+    torch.cuda.synchronize()
+    row["lanes_seconds"] = time.monotonic() - t_s
+    row["lanes_pivots"] = storm.eval_batch_fn.pivots - pivots
+    row["lanes_lps_per_second"] = 2 * STORM_EVAL_LANES / row["lanes_seconds"]
+    if again != ev:
+        fail(f"eval stormlike: a second evaluation on the same draws "
+             f"differs ({again} != {ev})")
+    ev_out["stormlike"] = row
+    if ev.count + ev.dropped != 2 * STORM_EVAL_LANES or \
+            not np.isfinite(ev.mean):
+        fail(f"eval stormlike: {ev}")
+    emit({"phase": "eval", **ev_out, "seconds": time.monotonic() - t})
 
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
     print(smi, flush=True)
@@ -313,7 +557,9 @@ def main() -> None:
         "name": "triple_masked_argmax", "route": "cuda",
         "source": "stochasticdecomposition_torch/csrc/triple_argmax.cu",
         "replaces": "stochasticdecomposition_tpu/ops/pallas_argmax.py:191",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": sum(launches.values()),
+        "launches_by_phase": launches,
+        "max_abs_err": kern["max_abs_err"],
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": "bytes",
         "library_ms": None,

@@ -6,11 +6,14 @@ tolerance presets selected by the ``-t {l,n,t}`` command line flag
 (twoSD.c:93-103).  Defaults below reproduce the shipped ``config.sd:1-136``.
 
 The port's own copy of the JAX package's configuration: every key parses
-the same way.  Keys that exist for the TPU's sake (SUBPROB_STAGED_BATCH,
-EVAL_F32_PIVOT, MEMORY_BUDGET_GB) have no effect on the port's batch-1
-path; options this slice does not run (SAMPLE_INCREMENT > 1,
-CHECK_EVERY > 1, SUBPROB_F32_PIVOT, MASTER_TYPE other than 5) raise
-NotImplementedError when the solver is built (core/step.check_supported).
+the same way.  Keys that exist for the TPU's sake are accepted and change
+nothing: SUBPROB_F32_PIVOT and EVAL_F32_PIVOT (the port pivots in f64, the
+card's native type), SUBPROB_STAGED_BATCH (a guard against a TPU kernel
+fault; the port solves all lanes in one pass, up to
+ops/simplex.lane_cap, which is sized for the card's memory) and
+MEMORY_BUDGET_GB.  MASTER_TYPE other than 5 and random cost coefficients
+raise NotImplementedError when the solver is built
+(core/step.check_supported).
 """
 
 from __future__ import annotations
@@ -102,55 +105,35 @@ class SDConfig:
     MULTIPLE_REP: int = 1
     COMPROMISE_PROB: bool = False
 
-    # ---- TPU-framework-only knobs (no reference equivalent) ----
+    # ---- Knobs without a reference equivalent ----
     # Number of fresh observations drawn per SD step. 1 reproduces the
     # reference's strictly sequential sampling (algo.c:145); >1 batch-samples
-    # (the vestigial `-s` flag of sd_experiments.sh:11).
+    # (the vestigial `-s` flag of sd_experiments.sh:11): k advances by the
+    # batch, the B subproblems are solved as the lanes of one solve_lp call
+    # and one candidate cut covers the enlarged sample.
     SAMPLE_INCREMENT: int = 1
     # Static pool capacities; None derives them from MAX_ITER the same way the
-    # reference preallocates (setup.c:126,136-144).
+    # reference preallocates (setup.c:126,136-144).  Deep batched runs on
+    # finite-support instances should set them from the support, so that the
+    # pools follow the deduplicated observations, not the sample count.
     MAX_OMEGA: int | None = None
     MAX_LAMBDA: int | None = None
     MAX_SIGMA: int | None = None
-    # Observation batch size for the out-of-sample evaluator.
+    # Observation batch size for the out-of-sample evaluator (the lanes of
+    # one solve_lp call).
     EVAL_BATCH: int = 512
-    # Run the evaluator's simplex pivot loop in float32 (MXU path on TPU)
-    # with float64 final-basis cleanup; statistical accuracy is unaffected.
+    # The JAX package's f32 pivot loops for the evaluator and for the SD
+    # subproblems (a TPU economy).  Accepted; the port pivots in f64.
     EVAL_F32_PIVOT: bool = False
-    # Run the SD loop's SUBPROBLEM pivot loops in float32 as well (duals,
-    # basis, and reduced costs still come from a float64 refactorization of
-    # the chosen basis; solve_lp clamps the pivot tolerance to 1e-5).  A
-    # rare tolerance-level suboptimal basis yields a slightly looser — but
-    # still valid within dual-feasibility tolerance — cut, the same
-    # tolerance semantics as CPLEX's 1e-6 defaults.  Off by default.
     SUBPROB_F32_PIVOT: bool = False
-    # Batched-mode proximal relaxation semantics: on a non-improving step,
-    # divide quad_scalar by R2 once (False, default: per-master-solve —
-    # the reference's literal rule, soln.c:50-51) or by
-    # R2**SAMPLE_INCREMENT (True: per-sample compounding).  Measured on
-    # device (pgp2like, SI=64, EF optimum 113.3): per-sample certifies at
-    # ~450 samples but the compounding pins quad_scalar high within a few
-    # rejections — the incumbent freezes early and the bootstrap LB's
-    # curvature slack -(q'q)/2sigma collapses, certifying a mediocre
-    # incumbent (exact gap 0.0118; 0.0116 even when MIN_ITER forces 2048
-    # samples).  Per-solve keeps the reference dynamics: certification
-    # needs roughly the same number of MASTER SOLVES as batch-1 (model
-    # convergence is counted in solves, samples in the window), i.e.
-    # ~N_stop*B samples — but batched samples are ~40x cheaper, so the
-    # certified stop is both FASTER in wall-clock and BETTER in quality
-    # than batch-1: 11,776 samples, exact gap 0.00043 (vs batch-1's
-    # 0.00196 at 264), 9.4 s warm on the TPU.  Deep batched runs should
-    # override MAX_OMEGA/MAX_LAMBDA/MAX_SIGMA on finite-support instances
-    # so pool capacity follows the dedup'd support, not the sample count.
+    # Batched-mode proximal relaxation: on a non-improving step divide
+    # quad_scalar by R2 once (False: per master solve, the reference's
+    # literal rule, soln.c:50-51) or by R2**SAMPLE_INCREMENT (True: per
+    # sample).
     QS_RELAX_PER_SAMPLE: bool = False
-    # Kernel-fault guard for the batched subproblem solve (RESULTS
-    # §4b.2: cold/far-warm-start storm-shape solve programs at >=64
-    # lanes with thousands of pivots crash the TPU worker).  None (auto)
-    # enables the two-stage solve — full-width bounded-pivot stage 1,
-    # then an 8-lane chunked finish with the full budget — when the
-    # subproblem has >=384 rows and SAMPLE_INCREMENT > 8; True/False
-    # force it.  Replaces the round-4 folklore rule "hv-class instances
-    # run SI<=8" with a guard (core/step.py _staged_batch).
+    # The JAX package's two-stage batched solve, a guard against a TPU
+    # kernel fault (None: automatic there).  Accepted; the port solves all
+    # lanes in one pass, up to ops/simplex.lane_cap lanes per pass.
     SUBPROB_STAGED_BATCH: bool | None = None
     # dtype for solver-critical state ("float64" strongly recommended).
     DTYPE: str = "float64"
@@ -161,14 +144,12 @@ class SDConfig:
     MAX_BASES: int | None = None
     # Simplex iteration cap multiplier: max_iters = SIMPLEX_ITER_MULT*(m+n)+64.
     SIMPLEX_ITER_MULT: int = 4
-    # Host stopping-check cadence: run CHECK_EVERY fused SD iterations per
-    # device dispatch (a lax.scan chunk). 1 reproduces the reference's
-    # per-iteration optimality gate (algo.c:130); larger values amortize
-    # dispatch overhead and may overshoot the stop by up to CHECK_EVERY-1
-    # iterations.
+    # Host stopping-check cadence: run CHECK_EVERY SD steps per call of
+    # the step. 1 reproduces the reference's per-iteration optimality gate
+    # (algo.c:130); larger values may overshoot the stop by up to
+    # CHECK_EVERY-1 steps.
     CHECK_EVERY: int = 1
-    # HBM budget for the static pools; solver construction fails loudly
-    # (core/state.py audit_capacities) instead of OOMing mid-run.
+    # The JAX package's budget for its static pools; accepted, unused.
     MEMORY_BUDGET_GB: float = 12.0
 
     def __post_init__(self):
@@ -190,10 +171,6 @@ class SDConfig:
             raise ValueError("SAMPLE_INCREMENT must be >= 1")
         if self.EVAL_BATCH < 1:
             raise ValueError("EVAL_BATCH must be >= 1")
-        # Widths above ops/simplex.MAX_VMAP_LANES are legal: every batched
-        # solve_lp dispatch (SD loop, evaluator, meshed eval) chunks via
-        # lax.map at that cap — no config can reach the wide-vmap TPU
-        # miscompilation documented in ops/simplex.py.
         if self.MULTIPLE_REP == 1:
             # A compromise problem needs >1 replication (twoSD.c:248-250).
             self.COMPROMISE_PROB = False

@@ -76,11 +76,13 @@ def _accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
 
 def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
              dual_stability: bool, pi_eval_start: int, pi_cycle: int,
-             scan_len: int):
+             scan_len: int, batch: int = 1):
     """SDCut (cuts.c:91-194): argmax over the vertex pool for every
     observation, weighted cut coefficients, and the dual-stability update.
-    Returns (CutParts, state) — state carries the pi_ratio/dual_stable
-    update."""
+    ``k`` counts samples; with ``batch`` samples per step the ratio window
+    holds one entry per step and ``scan_len`` counts steps
+    (``SDConfig.eff_scan_len``).  Returns (CutParts, state) — state carries
+    the pi_ratio/dual_stable update."""
     if int(pa.rv_d_cols.shape[0]) > 0:
         raise NotImplementedError(
             "random cost coefficients (the v2.0 cut path) are not ported yet")
@@ -114,15 +116,16 @@ def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
         ratio = torch.where(cumm_all == 0.0, 1.0,
                             cumm_old / torch.where(cumm_all == 0.0, 1.0,
                                                    cumm_all))
-        # Rolling window indexed by the iteration k, as the reference's
+        # Rolling window indexed by the step k // batch, as the reference's
         # pi_ratio[numSamples % SCAN_LEN] (cuts.c:172): the candidate and
-        # incumbent cuts of one iteration share a slot.
+        # incumbent cuts of one step share a slot.
         if pi_eval:
-            state.pi_ratio[k % scan_len] = ratio
+            state.pi_ratio[(k // batch) % scan_len] = ratio
             state = state._replace(ratio_cnt=state.ratio_cnt + 1)
             # Variance over the window (calcVariance, cuts.c:366-396), only
-            # meaningful once the window has wrapped (cuts.c:173-176).
-            if (k - pi_eval_start) > scan_len:
+            # meaningful once the window has wrapped (cuts.c:173-176); the
+            # gate counts samples.
+            if (k - pi_eval_start) > scan_len * batch:
                 window = state.pi_ratio[:scan_len]
                 variance = float(torch.var(window, correction=0)) * \
                     scan_len / (scan_len - 1)

@@ -133,6 +133,9 @@ class SDState(NamedTuple):
 
     lp_pivots: int = 0          # simplex pivots over all subproblem solves
     qp_iters: int = 0           # interior-point iterations over all masters
+    cut_cnt: int = 0            # SD cuts formed (triple argmax calls)
+    lane_iters: torch.Tensor | None = None  # [B] pivots of the last
+    #                             batched subproblem solve, per lane
 
 
 def _t(a, dtype, device):

@@ -1,15 +1,18 @@
-"""One SD iteration, batch 1 (one observation per iteration).
+"""One SD iteration: one observation, or SAMPLE_INCREMENT of them.
 
 Composes the reference hot path (solveCell body, algo.c:127-183):
 draw observation -> dedup -> candidate subproblem + stochastic updates +
 candidate cut -> incumbent cut every TAU -> incumbent-improvement check ->
-regularized QP master.  The port of the batch-1 branch of the JAX package's
-``core/step.py::make_step``; the host reads back the few scalars each
-decision needs.
+regularized QP master.  The port of the JAX package's
+``core/step.py::make_step``, batch 1 and batched, with CHECK_EVERY steps per
+call; the host reads back the few scalars each decision needs.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from stochasticdecomposition_torch.config import MASTER_QP, SDConfig
@@ -19,39 +22,56 @@ from stochasticdecomposition_torch.core.cuts import (
 from stochasticdecomposition_torch.core.master import build_and_solve_master
 from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
 from stochasticdecomposition_torch.core.update import (
-    calc_omega, stochastic_updates, warm_solve_subproblem,
+    calc_omega, calc_omega_batch, stochastic_updates,
+    stochastic_updates_batch, subproblem_rhs_cost_lanes,
+    warm_solve_subproblem,
 )
-from stochasticdecomposition_torch.ops.simplex import STATUS_OPTIMAL
+from stochasticdecomposition_torch.ops.simplex import (
+    AT_UPPER, STATUS_OPTIMAL, solve_lp,
+)
 from stochasticdecomposition_torch.sampler import SamplerSpec, sample_omega
 
 
 def check_supported(pa: ProblemArrays, cfg: SDConfig) -> None:
-    """Raise for the configurations this slice of the port does not run."""
+    """Raise for the configurations this port does not run yet."""
     if cfg.MASTER_TYPE != MASTER_QP:
         raise NotImplementedError(
             f"MASTER_TYPE={cfg.MASTER_TYPE}: only the regularized QP master "
-            "(MASTER_TYPE 5) is ported")
-    if cfg.SAMPLE_INCREMENT != 1:
-        raise NotImplementedError(
-            "SAMPLE_INCREMENT > 1 (batched sampling) is not ported yet")
-    if cfg.CHECK_EVERY != 1:
-        raise NotImplementedError("CHECK_EVERY > 1 is not ported")
-    if cfg.SUBPROB_F32_PIVOT:
-        raise NotImplementedError(
-            "SUBPROB_F32_PIVOT: the port's subproblem solves pivot in f64")
+            "(MASTER_TYPE 5) is ported (ROADMAP A14)")
     if int(pa.rv_d_cols.shape[0]) > 0:
         raise NotImplementedError(
-            "random cost coefficients (the v2.0 path) are not ported yet")
+            "random cost coefficients (the v2.0 path) are not ported yet "
+            "(ROADMAP A13)")
 
 
 def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
     """Build the SD iteration ``step(state, gen, w_raw=None) -> state``.
 
-    ``gen`` draws the observation; ``w_raw`` (raw, uncentered [R]) injects
-    it instead, so tests can feed the port the JAX package's draws."""
+    One step draws SAMPLE_INCREMENT = B observations and advances ``k``
+    (which counts samples) by B; CHECK_EVERY steps run per call.  ``gen``
+    draws the observations; ``w_raw`` (raw, uncentered: [R] or [B, R], and
+    [CHECK_EVERY, B, R] for several steps) injects them instead, so tests
+    can feed the port the JAX package's draws.  SUBPROB_F32_PIVOT and
+    SUBPROB_STAGED_BATCH are accepted and change nothing: the subproblems
+    are solved in f64, all B lanes in one pass (ops/simplex.lane_cap)."""
     check_supported(pa, cfg)
     tol = cfg.TOLERANCE
     dtype = pa.c1.dtype
+    batch = max(1, int(cfg.SAMPLE_INCREMENT))
+    # The ratio window holds one entry per step and spans SCAN_LEN samples.
+    scan_len = cfg.eff_scan_len()
+    chunk = max(1, int(cfg.CHECK_EVERY))
+
+    def _cut(state: SDState, x, k: int, incumbent: bool):
+        """SDCut + addCut2Pool on the current pools (cuts.c:40-89)."""
+        parts, state = form_cut(
+            pa, state, x, k,
+            dual_stability=cfg.DUAL_STABILITY,
+            pi_eval_start=cfg.PI_EVAL_START,
+            pi_cycle=cfg.PI_CYCLE,
+            scan_len=scan_len, batch=batch)
+        state = state._replace(cut_cnt=state.cut_cnt + 1)
+        return add_cut(pa, state, parts, k, incumbent=incumbent, tol=tol)
 
     def _form_sd_cut(state: SDState, x, o_idx: int, new_o: bool, k: int,
                      incumbent: bool):
@@ -64,13 +84,48 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
                                lp_pivots=state.lp_pivots + int(res.iters),
                                sp_feas=state.sp_feas and sp_feas)
         state, _ = stochastic_updates(pa, state, res, o_idx, new_o, k, tol)
-        parts, state = form_cut(
-            pa, state, x, k,
-            dual_stability=cfg.DUAL_STABILITY,
-            pi_eval_start=cfg.PI_EVAL_START,
-            pi_cycle=cfg.PI_CYCLE,
-            scan_len=cfg.eff_scan_len())
-        return add_cut(pa, state, parts, k, incumbent=incumbent, tol=tol)
+        return _cut(state, x, k, incumbent)
+
+    def _batched_candidate_cut(state: SDState, w_batch, k: int):
+        """The B observations of a step: dedup, one lane-batched solve at
+        the candidate warm-started from the carried basis, pooling, and one
+        candidate cut over the enlarged sample (JAX core/step.py:245-380)."""
+        state, o_idxs, new_flags = calc_omega_batch(state, w_batch, tol)
+        state = state._replace(last_o_idx=int(o_idxs[-1]))
+        # Past an overflowed omega pool read the last row, as the JAX
+        # package's gather does; the runner then raises on the overflow.
+        O = state.omega_vals.shape[0]
+        rows = torch.as_tensor(np.minimum(o_idxs, O - 1),
+                               device=w_batch.device)
+        ws = state.omega_vals[rows]
+        rhs, cost = subproblem_rhs_cost_lanes(pa, state.candid_x, ws)
+        B = ws.shape[0]
+        res_b = solve_lp(
+            pa.D, pa.sense2, cost, pa.l2, pa.u2, rhs,
+            init_basis=state.warm_basis.expand(B, -1),
+            init_at_upper=state.warm_atup.expand(B, -1))
+        # The next warm start is the basis of the optimal lane whose
+        # centered observation is nearest the mean (the most typical
+        # scenario of the batch, JAX core/step.py:339-354).
+        okb = res_b.status == STATUS_OPTIMAL
+        score = torch.where(okb, -torch.sum(ws * ws, dim=1), -math.inf)
+        # One host sync for the lane, the optimal count and the pivots.
+        li, n_ok, pivots = torch.stack(
+            [torch.argmax(score), torch.sum(okb),
+             torch.sum(res_b.iters)]).tolist()
+        if n_ok > 0:
+            state = state._replace(
+                warm_basis=res_b.basis[li].clone(),
+                warm_atup=torch.cat([res_b.cstat[li], res_b.rstat[li]])
+                == AT_UPPER)
+        state = state._replace(
+            lp_cnt=state.lp_cnt + B,
+            lp_pivots=state.lp_pivots + pivots,
+            lane_iters=res_b.iters,
+            sp_feas=state.sp_feas and n_ok == B)
+        state = stochastic_updates_batch(pa, state, res_b, o_idxs, new_flags,
+                                         k, tol)
+        return _cut(state, state.candid_x, k, incumbent=False)
 
     def _check_improvement(state: SDState, cand_slot: int, k: int):
         """checkImprovement / replaceIncumbent (soln.c:24-94)."""
@@ -98,29 +153,35 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
                 i_cut_idx=cand_slot, i_cut_updt=k, incumb_chg=False,
                 norm_dk_1=s.norm_dk,
                 gamma=torch.zeros((), dtype=dtype, device=qs.device))
-        # No improvement: strengthen the proximal term (soln.c:50-51).
+        # No improvement: strengthen the proximal term (soln.c:50-51), once
+        # per master solve, or once per sample under QS_RELAX_PER_SAMPLE.
+        relax = cfg.R2 ** batch if cfg.QS_RELAX_PER_SAMPLE else cfg.R2
         return s._replace(
-            quad_scalar=torch.clamp(s.quad_scalar / cfg.R2,
+            quad_scalar=torch.clamp(s.quad_scalar / relax,
                                     max=cfg.MAX_QUAD_SCALAR),
             norm_dk_1=s.norm_dk)
 
-    def step(state: SDState, gen: torch.Generator | None = None,
-             w_raw=None) -> SDState:
-        k = state.k + 1
+    def one_step(state: SDState, gen, w_raw) -> SDState:
+        k = state.k + batch
         state = state._replace(k=k, sp_feas=True, cut_ok=True)
 
         # 2. generateOmega + mean-centering + dedup (algo.c:145-152).
         if w_raw is None:
-            w_raw = sample_omega(spec, gen, 1, dtype=dtype)[0]
-        w = w_raw.to(dtype) - pa.omega_mean
-        state, o_idx, new_o = calc_omega(state, w, tol)
-        state = state._replace(last_o_idx=o_idx)
-        # 3. candidate cut (algo.c:155).
-        state, cand_slot = _form_sd_cut(
-            state, state.candid_x, o_idx, new_o, k, incumbent=False)
+            w_raw = sample_omega(spec, gen, batch, dtype=dtype)
+        w = w_raw.to(dtype).reshape(batch, -1) - pa.omega_mean[None]
+        if batch == 1:
+            state, o_idx, new_o = calc_omega(state, w[0], tol)
+            state = state._replace(last_o_idx=o_idx)
+            # 3. candidate cut (algo.c:155).
+            state, cand_slot = _form_sd_cut(
+                state, state.candid_x, o_idx, new_o, k, incumbent=False)
+            do_inc = (k - state.i_cut_updt) % cfg.TAU == 0
+        else:
+            state, cand_slot = _batched_candidate_cut(state, w, k)
+            do_inc = (k - state.i_cut_updt) >= cfg.TAU
 
         # 4. incumbent cut every TAU iterations (algo.c:161-166).
-        if (k - state.i_cut_updt) % cfg.TAU == 0:
+        if do_inc:
             state, _ = _form_sd_cut(state, state.incumb_x, state.last_o_idx,
                                     False, k, incumbent=True)
         # 5. incumbent improvement check (algo.c:169-171).
@@ -146,5 +207,17 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
             master_ok=state.master_ok and res.ok,
             qp_iters=state.qp_iters + res.iters,
         )
+
+    def step(state: SDState, gen: torch.Generator | None = None,
+             w_raw=None) -> SDState:
+        if chunk == 1:
+            return one_step(state, gen, w_raw)
+        # CHECK_EVERY steps with no host gate between them (the JAX
+        # package's lax.scan chunk, core/step.py:424-433).
+        if w_raw is not None:
+            w_raw = torch.as_tensor(w_raw).reshape(chunk, batch, -1)
+        for i in range(chunk):
+            state = one_step(state, gen, None if w_raw is None else w_raw[i])
+        return state
 
     return step

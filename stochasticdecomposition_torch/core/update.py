@@ -9,6 +9,7 @@ place.  The delta table fills (stocUpdate.c:196-257) are matrix products.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
@@ -21,21 +22,29 @@ def subproblem_rhs_cost(pa: ProblemArrays, x, w):
     """rhs = (bBar + b_w) - (CBar + C_w) x and cost = dBar + d_w for one
     centered observation w (reference computeRHS/computeCostCoeff,
     subprob.c:96-156)."""
+    rhs, cost = subproblem_rhs_cost_lanes(pa, x, w[None])
+    return rhs[0], cost[0]
+
+
+def subproblem_rhs_cost_lanes(pa: ProblemArrays, x, W):
+    """``subproblem_rhs_cost`` for the rows of W [B, R] at one x:
+    (rhs [B, m2], cost [B, n2])."""
     nb = pa.rv_b_rows.shape[0]
     nC = pa.rv_C_rows.shape[0]
     nd = pa.rv_d_cols.shape[0]
     off_C = nb
     off_d = nb + nC
+    B = W.shape[0]
 
-    rhs = pa.b_bar - pa.C_bar @ x
+    rhs = (pa.b_bar - pa.C_bar @ x).expand(B, -1)
     if nb:
-        rhs = rhs.index_add(0, pa.rv_b_rows, w[:nb])
+        rhs = rhs.index_add(1, pa.rv_b_rows, W[:, :nb])
     if nC:
-        contrib = w[off_C:off_C + nC] * x[pa.rv_C_cols]
-        rhs = rhs.index_add(0, pa.rv_C_rows, -contrib)
-    cost = pa.d_bar
+        contrib = W[:, off_C:off_C + nC] * x[pa.rv_C_cols]
+        rhs = rhs.index_add(1, pa.rv_C_rows, -contrib)
+    cost = pa.d_bar.expand(B, -1)
     if nd:
-        cost = cost.index_add(0, pa.rv_d_cols, w[off_d:off_d + nd])
+        cost = cost.index_add(1, pa.rv_d_cols, W[:, off_d:off_d + nd])
     return rhs, cost
 
 
@@ -190,6 +199,169 @@ def calc_sigma(pa: ProblemArrays, state: SDState, pi, mub_bar, lidx: int,
         state.sigma_ck[idx] = k
         state.sigma_feas[idx] = feas
     return state._replace(sigma_cnt=cnt + 1), idx, True
+
+
+def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None):
+    """Order-preserving dedup of a candidate batch against a pool: the
+    outcome of B sequential per-item dedups, in one pass.
+
+    Item i matches the pool, or an earlier batch item j < i that was itself
+    added as new (an item that matched the pool is never added, so a
+    near-match to it does not count: the tolerance chaining of the
+    sequential scan).  cand: [B, d]; pool: [cnt0, d], the occupied rows;
+    ``extra_eq``: optional ([B, cnt0], [B, B]) equality masks ANDed in.
+    Returns (idx int64 [B] on the host, is_new bool [B] on the host,
+    new_cnt); new items take consecutive slots from cnt0 in batch order.
+    """
+    B, d = cand.shape
+    if d:
+        close_pool = torch.all(
+            torch.abs(cand[:, None, :] - pool[None, :, :]) <= tol, dim=2)
+        close_batch = torch.all(
+            torch.abs(cand[:, None, :] - cand[None, :, :]) <= tol, dim=2)
+    else:
+        close_pool = torch.ones((B, pool.shape[0]), dtype=torch.bool,
+                                device=cand.device)
+        close_batch = torch.ones((B, B), dtype=torch.bool, device=cand.device)
+    if extra_eq is not None:
+        close_pool = close_pool & extra_eq[0]
+        close_batch = close_batch & extra_eq[1]
+    match_pool = torch.any(close_pool, dim=1)
+    first_pool = torch.argmax(close_pool.to(torch.int8), dim=1) \
+        if close_pool.shape[1] else torch.zeros(B, dtype=torch.int64)
+    # One transfer: the sequential decisions are B steps on the host.
+    match_pool, first_pool, close_batch = (
+        t.cpu().numpy() for t in (match_pool, first_pool, close_batch))
+    idx = np.empty(B, np.int64)
+    is_new = np.zeros(B, bool)
+    cnt = cnt0
+    for i in range(B):
+        if match_pool[i]:
+            idx[i] = first_pool[i]
+            continue
+        hits = np.flatnonzero(close_batch[i, :i] & is_new[:i])
+        if hits.shape[0]:
+            idx[i] = idx[hits[0]]
+        else:
+            is_new[i] = True
+            idx[i] = cnt
+            cnt += 1
+    return idx, is_new, cnt
+
+
+def calc_omega_batch(state: SDState, w_batch, tol: float):
+    """B observations deduped into the omega pool at once: the same pool
+    contents, weights and slot order as B sequential ``calc_omega`` calls.
+    Returns (state, o_idxs, new_flags), both numpy [B]."""
+    O = state.omega_vals.shape[0]
+    cnt = state.omega_cnt
+    idx, is_new, cnt1 = _batch_dedup(w_batch, state.omega_vals[:min(cnt, O)],
+                                     cnt, tol)
+    put = is_new & (idx < O)
+    if put.any():
+        state.omega_vals[torch.as_tensor(idx[put], device=w_batch.device)] = \
+            w_batch[torch.as_tensor(np.flatnonzero(put),
+                                    device=w_batch.device)]
+    inside = idx[idx < O]
+    state.omega_w.index_add_(
+        0, torch.as_tensor(inside, device=w_batch.device),
+        torch.ones(inside.shape[0], dtype=state.omega_w.dtype,
+                   device=w_batch.device))
+    return state._replace(omega_cnt=cnt1), idx, is_new
+
+
+def stochastic_updates_batch(pa: ProblemArrays, state: SDState,
+                             res_b: LPResult, o_idxs, new_o, k: int,
+                             tol: float) -> SDState:
+    """Pool B subproblem duals (``res_b`` with its lane axis) on the
+    plain-randomness path: the same final pools as B sequential
+    ``stochastic_updates`` calls, with the dedups done batch-wise and each
+    delta fill one product over the new rows or columns.
+
+    The delta table is a function of (lambda row, omega column) alone, so
+    only coverage matters: new lambda rows are filled against the extended
+    omega pool, then new omega columns against the extended lambda pool
+    (a (new, new) pair gets the column's value)."""
+    nb = pa.rv_b_rows.shape[0]
+    nC = pa.rv_C_rows.shape[0]
+    dev = state.lambda_vals.device
+    B = len(o_idxs)
+
+    feas = res_b.status == STATUS_OPTIMAL                        # [B]
+    pi_b = torch.where(feas[:, None], res_b.pi, res_b.farkas)    # [B, m2]
+    rd = res_b.farkas @ pa.D                                     # [B, n2]
+    u_fin = torch.where(torch.isfinite(pa.u2), pa.u2, 0.0)
+    l_fin = torch.where(torch.isfinite(pa.l2), pa.l2, 0.0)
+    mub_ray = -torch.sum(u_fin[None] * torch.clamp(rd, min=0.0) +
+                         l_fin[None] * torch.clamp(rd, max=0.0), dim=1)
+    at_bound = (res_b.cstat == AT_LOWER) | (res_b.cstat == AT_UPPER)
+    mu_opt = torch.sum(torch.where(at_bound, res_b.dj * res_b.y, 0.0), dim=1)
+    mub = torch.where(feas, mu_opt, mub_ray)                     # [B]
+
+    # ---- lambda dedup (calcLambda x B) ---------------------------------
+    L = state.lambda_vals.shape[0]
+    lam_b = pi_b[:, pa.lambda_rows]                              # [B, nlr]
+    lcnt = state.lambda_cnt
+    lidx, new_lam, lcnt1 = _batch_dedup(
+        lam_b, state.lambda_vals[:min(lcnt, L)], lcnt, tol)
+    state = state._replace(lambda_cnt=lcnt1)
+    new_l = np.flatnonzero(new_lam & (lidx < L))
+    rows_l = torch.as_tensor(lidx[new_l], device=dev)
+    items_l = torch.as_tensor(new_l, device=dev)
+    if new_l.shape[0]:
+        state.lambda_vals[rows_l] = lam_b[items_l]
+
+    # ---- delta fills (calcDelta Cases II then I) ------------------------
+    Ocap = state.delta_pib.shape[1]
+    new_c = np.flatnonzero(new_o & (o_idxs < Ocap))
+    cols_o = torch.as_tensor(o_idxs[new_c], device=dev)
+    if nb:
+        if new_l.shape[0]:
+            state.delta_pib[rows_l] = (
+                state.omega_vals[:, :nb] @ (pa.bmap.T @ lam_b[items_l].T)).T
+        if new_c.shape[0]:
+            state.delta_pib[:, cols_o] = state.lambda_vals @ (
+                pa.bmap @ state.omega_vals[cols_o, :nb].T)       # [L, b]
+    if nC:
+        if new_l.shape[0]:
+            lamC = lam_b[items_l][:, pa.lam_pos_C]               # [b, nC]
+            state.delta_piC[rows_l] = torch.einsum(
+                "oc,bc,cr->bor", state.omega_vals[:, nb:nb + nC], lamC,
+                pa.Cgroup)                                       # [b, O, nCr]
+        if new_c.shape[0]:
+            state.delta_piC[:, cols_o] = torch.einsum(
+                "bc,lc,cr->lbr", state.omega_vals[cols_o, nb:nb + nC],
+                state.lambda_vals[:, pa.lam_pos_C], pa.Cgroup)   # [L, b, nCr]
+
+    # ---- sigma dedup (calcSigma x B) ------------------------------------
+    pib_b = pi_b @ pa.b_bar + mub                                # [B]
+    piC_b = (pi_b @ pa.C_bar)[:, pa.C_cols]                      # [B, nCc]
+    S = state.sigma_pib.shape[0]
+    scnt = state.sigma_cnt
+    sn = min(scnt, S)
+    cand = torch.cat([pib_b[:, None], piC_b], dim=1)
+    pool = torch.cat([state.sigma_pib[:sn, None], state.sigma_piC[:sn]],
+                     dim=1)
+    # A new lambda forces a new sigma entry (calcSigma's new_lambda gate):
+    # pool rows never match a new-lambda item; within the batch an item
+    # matches only earlier items of the same final lambda index.
+    lidx_t = torch.as_tensor(lidx, device=dev)
+    new_lam_t = torch.as_tensor(new_lam, device=dev)
+    eq_pool = (state.sigma_lidx[None, :sn] == lidx_t[:, None]) & \
+        ~new_lam_t[:, None]
+    eq_batch = lidx_t[None, :] == lidx_t[:, None]
+    sidx, new_sig, scnt1 = _batch_dedup(cand, pool, scnt, tol,
+                                        extra_eq=(eq_pool, eq_batch))
+    new_s = np.flatnonzero(new_sig & (sidx < S))
+    if new_s.shape[0]:
+        rows_s = torch.as_tensor(sidx[new_s], device=dev)
+        items_s = torch.as_tensor(new_s, device=dev)
+        state.sigma_pib[rows_s] = pib_b[items_s]
+        state.sigma_piC[rows_s] = piC_b[items_s]
+        state.sigma_lidx[rows_s] = lidx_t[items_s]
+        state.sigma_ck[rows_s] = k
+        state.sigma_feas[rows_s] = feas[items_s]
+    return state._replace(sigma_cnt=scnt1)
 
 
 def stochastic_updates(pa: ProblemArrays, state: SDState, res: LPResult,

@@ -24,7 +24,7 @@ _INT_FIELDS = {
 _BOOL_TENSORS = {"sigma_feas", "cut_mask", "fcut_mask", "warm_atup"}
 _PY_INTS = {"k", "lp_cnt", "lp_pivots", "qp_iters", "omega_cnt",
             "lambda_cnt", "sigma_cnt", "i_cut_idx", "i_cut_updt",
-            "ratio_cnt", "last_o_idx"}
+            "ratio_cnt", "last_o_idx", "cut_cnt"}
 _PY_BOOLS = {"incumb_chg", "dual_stable", "sp_feas", "master_ok", "cut_ok",
              "lb_nontrivial"}
 _PY_FLOATS = {"lb"}

@@ -79,7 +79,9 @@ def exact_objective_fn(pa, outs: np.ndarray, probs: np.ndarray):
     ``solve_lp`` call on the problem's device."""
     import torch
 
-    from stochasticdecomposition_torch.core.update import subproblem_rhs_cost
+    from stochasticdecomposition_torch.core.update import (
+        subproblem_rhs_cost_lanes,
+    )
     from stochasticdecomposition_torch.ops.simplex import (
         STATUS_OPTIMAL, solve_lp,
     )
@@ -90,9 +92,8 @@ def exact_objective_fn(pa, outs: np.ndarray, probs: np.ndarray):
 
     def obj(x) -> float:
         x = torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-        rhs, cost = zip(*(subproblem_rhs_cost(pa, x, wi) for wi in W))
-        res = solve_lp(pa.D, pa.sense2, torch.stack(cost), pa.l2, pa.u2,
-                       torch.stack(rhs))
+        rhs, cost = subproblem_rhs_cost_lanes(pa, x, W)
+        res = solve_lp(pa.D, pa.sense2, cost, pa.l2, pa.u2, rhs)
         if not bool(torch.all(res.status == STATUS_OPTIMAL)):
             raise RuntimeError("a scenario subproblem was not solved to "
                                "optimality")

@@ -125,6 +125,29 @@ def _lanes(a, B, dtype):
     return a.expand(B, -1) if a.dim() == 1 else a
 
 
+def lane_cap(m: int, n: int, device) -> int:
+    """The most lanes one pass of ``solve_lp`` holds for an LP of m rows and
+    n structural columns.  A lane keeps about eight [m, m] f64 arrays live
+    at once (the inverse, its product-form update, the refactorization's
+    gathered basis, factors and residual) and some forty rows of m + n; the
+    lanes may take half of the device's memory (40 GB of an 80 GB H100;
+    8 GiB on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory // 2
+    else:
+        budget = 8 << 30
+    per_lane = 8 * (8 * m * m + 40 * (m + n))
+    return max(1, budget // per_lane)
+
+
+def _lane_slice(a, lanes: int, sl: slice):
+    """Lanes ``sl`` of an argument that may or may not carry the lane axis."""
+    if a is None or a.dim() < 2 or a.shape[0] != lanes:
+        return a
+    return a[sl]
+
+
 def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
              refac_every: int | None = None, stall_limit: int = 24,
              pivot_dtype=None, lite: bool = False,
@@ -136,18 +159,37 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     lane axis; l, u: [n] or [B, n].  ``init_basis`` [B, m] and
     ``init_at_upper`` [B, n + m] warm-start the lanes.  ``max_iter=0``
     derives a cap of 4*(m+n)+64; ``refac_every=None`` the refactorization
-    cadence max(64, min(512, m // 4)).
+    cadence max(64, min(512, m // 4)).  More lanes than ``lane_cap`` are
+    solved in passes of that many, a guard against running out of memory
+    under a user-set EVAL_BATCH (no default configuration reaches it); a
+    lane's result does not depend on the others.
 
-    ``pivot_dtype``, ``lite`` and ``partial_pricing`` are options of the JAX
-    solver that the SD main path does not use; they are not ported.
+    ``lite`` skips the final clean refactorization and reports the
+    objective, primal and duals from the loop's last (chunk-end
+    refactorized) state, with only the non-finite guard on the status —
+    for the out-of-sample evaluator, which reads (obj, status).
+    ``pivot_dtype`` (the JAX solver's f32 pivot loop, a TPU economy) is
+    accepted and ignored: the port pivots in the input dtype.
+    ``partial_pricing`` is not ported.
     """
-    if pivot_dtype is not None or lite or partial_pricing:
+    if partial_pricing:
         raise NotImplementedError(
-            "pivot_dtype, lite and partial_pricing are not ported; the SD "
-            "main path solves in full f64 with full pricing")
+            "partial_pricing is not ported; the port prices every column")
+    Bn = b.shape[0]
+    cap = lane_cap(D.shape[0], D.shape[1], D.device)
+    if Bn > cap:
+        parts = []
+        for lo_ in range(0, Bn, cap):
+            sl = slice(lo_, min(lo_ + cap, Bn))
+            parts.append(solve_lp(
+                D, sense, _lane_slice(d, Bn, sl), _lane_slice(l, Bn, sl),
+                _lane_slice(u, Bn, sl), b[sl], max_iter=max_iter, tol=tol,
+                refac_every=refac_every, stall_limit=stall_limit, lite=lite,
+                init_basis=_lane_slice(init_basis, Bn, sl),
+                init_at_upper=_lane_slice(init_at_upper, Bn, sl)))
+        return LPResult(*(torch.cat(f) for f in zip(*parts)))
     dtype = D.dtype
     dev = D.device
-    Bn = b.shape[0]
     m, n = D.shape
     nt = n + m
     if max_iter == 0:
@@ -386,6 +428,27 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     final = st
     status = torch.where(final.done, final.status,
                          torch.full_like(final.status, STATUS_ITER_LIMIT))
+    cstat_full = torch.where(
+        final.in_basis, BASIC,
+        torch.where(free_all, FREE_NB,
+                    torch.where(final.at_upper, AT_UPPER, AT_LOWER)))
+
+    if lite:
+        xn_full = _nonbasic_values(lo, up, final.at_upper, final.in_basis)
+        x_full = xn_full.scatter(1, final.basis, final.xb)
+        cb = torch.gather(c, 1, final.basis)
+        pi = torch.einsum("bi,bij->bj", cb, final.binv)
+        dj_full = c - pi @ A
+        obj = torch.sum(c * x_full, dim=1)
+        # Non-finite guard: a NaN/inf objective is never OPTIMAL (the
+        # evaluator counts optimal lanes into its estimate).
+        status = torch.where(torch.isfinite(obj), status,
+                             torch.full_like(status, STATUS_ITER_LIMIT))
+        return LPResult(
+            status=status, obj=obj, y=x_full[:, :n], pi=pi,
+            dj=dj_full[:, :n], cstat=cstat_full[:, :n],
+            rstat=cstat_full[:, n:], basis=final.basis, binv=final.binv,
+            iters=final.it, farkas=torch.zeros_like(pi))
 
     # ---- clean final quantities from a refactorization of the basis -----
     binv = refactorize(A, final.basis)
@@ -406,11 +469,6 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     farkas = torch.einsum("bi,bij->bj", cb1, binv)
     farkas = torch.where((status == STATUS_INFEASIBLE)[:, None], farkas,
                          0 * one)
-
-    cstat_full = torch.where(
-        final.in_basis, BASIC,
-        torch.where(free_all, FREE_NB,
-                    torch.where(final.at_upper, AT_UPPER, AT_LOWER)))
 
     # Non-finite guard, then the independent dual certification.
     ok_num = torch.isfinite(obj) & torch.all(torch.isfinite(pi), dim=1)

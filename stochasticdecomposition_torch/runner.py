@@ -1,11 +1,14 @@
 """Replication driver: the ``algo()`` / ``solveCell()`` equivalent.
 
 Reference: algo.c.  ``SDSolver`` stages one problem on the device and runs
-replications: SD iterations (core/step.py) until the statistical stop
-(pre-test, then the bootstrap full test, optimal.c) or MAX_ITER.  Each
-replication draws from its own ``torch.Generator`` pair seeded from
-RUN_SEED.  Out-of-sample evaluation, checkpoints, metrics and meshes are not
-part of this slice of the port.
+a replication: SD steps (core/step.py; SAMPLE_INCREMENT samples each,
+CHECK_EVERY steps between two host gates) until the statistical stop
+(pre-test, then the bootstrap full test, optimal.c) or MAX_ITER samples,
+then the out-of-sample evaluation of the incumbent when EVAL_FLAG is set.
+A replication draws from its own ``torch.Generator`` pair seeded from
+RUN_SEED, the evaluation from one seeded from EVAL_SEED.  Several
+replications with the compromise problem, checkpoints, metrics files and
+meshes are not ported yet (ROADMAP A15-A17).
 """
 
 from __future__ import annotations
@@ -13,11 +16,15 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from stochasticdecomposition_torch.config import SDConfig
+from stochasticdecomposition_torch.core.evaluate import (
+    EvalResult, eval_generator, evaluate, make_eval_batch,
+)
 from stochasticdecomposition_torch.core.state import (
     Capacities, derive_capacities, estimate_pool_bytes, init_state,
     stage_problem,
@@ -72,6 +79,14 @@ class ReplicationResult:
     lp_pivots: int = 0          # simplex pivots over all subproblem solves
     qp_iters: int = 0           # interior-point iterations over all masters
     master_failures: int = 0    # uncertified master solves (run continued)
+    cuts_formed: int = 0        # SD cuts formed (triple argmax calls)
+    eval: Optional[EvalResult] = None
+
+
+@dataclasses.dataclass
+class RunResult:
+    problem: str
+    replications: List[ReplicationResult]
 
 
 def mean_value_solution(sp: StagedProblem, device: torch.device,
@@ -139,9 +154,14 @@ class SDSolver:
         self.caps = derive_capacities(sp, cfg)
         self.pool_bytes = estimate_pool_bytes(sp, self.caps, cfg)
         self.mean_sol = mean_value_solution(sp, self.device, dtype)
+        self.eval_batch_fn = None
+        self._eval_batch = 0
 
-    def solve_replication(self, rep: int = 0, log=lambda s: None
-                          ) -> ReplicationResult:
+    def solve_replication(self, rep: int = 0, log=lambda s: None,
+                          metrics=None) -> ReplicationResult:
+        """One replication to the certified stop or MAX_ITER samples.
+        ``metrics``, if given, has its ``record(state)`` called after
+        every call of the step."""
         cfg = self.cfg
         t0 = time.monotonic()
         gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
@@ -167,6 +187,8 @@ class SDSolver:
                     break
                 log(".")
             state = self.step(state, gen)
+            if metrics is not None:
+                metrics.record(state)
             if not state.sp_feas:
                 raise NotImplementedError(
                     f"an infeasible subproblem at k={state.k} needs "
@@ -215,4 +237,31 @@ class SDSolver:
             lp_pivots=state.lp_pivots,
             qp_iters=state.qp_iters,
             master_failures=master_failures,
+            cuts_formed=state.cut_cnt,
         )
+
+    def evaluate_x(self, x, rep: int = 0, **kw) -> EvalResult:
+        """Out-of-sample estimate of c'x + E[h(x, omega)] on draws from
+        EVAL_SEED[rep]; ``kw`` goes to ``core/evaluate.evaluate``.  The
+        batch function is kept across calls (it keeps the mean observation's
+        basis) and built again when EVAL_BATCH changes."""
+        batch = self.cfg.EVAL_BATCH
+        if self.eval_batch_fn is None or self._eval_batch != batch:
+            self.eval_batch_fn = make_eval_batch(self.pa, self.spec, batch)
+            self._eval_batch = batch
+        gen = eval_generator(self.cfg.EVAL_SEED[rep], self.device)
+        return evaluate(self.pa, self.spec, self.cfg, x, gen,
+                        eval_batch_fn=self.eval_batch_fn, **kw)
+
+    def run(self, log=lambda s: None, metrics=None) -> RunResult:
+        """The run of ``algo()`` (algo.c:36-96) for one replication: solve
+        it, then evaluate its incumbent when EVAL_FLAG is set."""
+        cfg = self.cfg
+        if cfg.MULTIPLE_REP > 1 or cfg.COMPROMISE_PROB:
+            raise NotImplementedError(
+                "MULTIPLE_REP > 1 and the compromise problem are not ported "
+                "yet (ROADMAP A15)")
+        r = self.solve_replication(0, log=log, metrics=metrics)
+        if cfg.EVAL_FLAG:
+            r.eval = self.evaluate_x(r.incumb_x, 0)
+        return RunResult(problem=self.sp.name, replications=[r])

@@ -167,11 +167,20 @@ def test_farkas_certificate():
 
 
 def test_unported_options_raise():
+    """partial_pricing is not ported; pivot_dtype is accepted and solved in
+    f64 (the same result), and lite gives the full solve's status and
+    objective."""
     lp = _random_lp(np.random.default_rng(1))
-    for kw in (dict(pivot_dtype=torch.float32), dict(lite=True),
-               dict(partial_pricing=True)):
-        with pytest.raises(NotImplementedError):
-            _port(*lp, **kw)
+    with pytest.raises(NotImplementedError):
+        _port(*lp, partial_pricing=True)
+    full = _port(*lp)
+    f32 = _port(*lp, pivot_dtype=torch.float32)
+    for a, b in zip(full, f32):
+        assert torch.equal(a, b)
+    lite = _port(*lp, lite=True)
+    assert int(lite.status) == int(full.status)
+    assert abs(float(lite.obj) - float(full.obj)) <= \
+        1e-9 * max(1.0, abs(float(full.obj)))
 
 
 @pytest.mark.parametrize("name", ["lands", "pgp2like"])

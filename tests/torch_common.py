@@ -10,10 +10,14 @@ import torch
 from stochasticdecomposition_torch.interop import state_from_numpy
 from stochasticdecomposition_torch.prob import attach_stoc, decompose
 from stochasticdecomposition_torch.models.instances import load_instance
+from stochasticdecomposition_torch.models.synthetic import parse_synthetic
 from stochasticdecomposition_tpu.config import SDConfig as JaxConfig
 from stochasticdecomposition_tpu.core.state import init_state as jax_init
 from stochasticdecomposition_tpu.models.instances import (
     load_instance as jax_load_instance,
+)
+from stochasticdecomposition_tpu.models.synthetic import (
+    parse_synthetic as jax_parse_synthetic,
 )
 from stochasticdecomposition_tpu.prob import decompose as jax_decompose
 from stochasticdecomposition_tpu.runner import (
@@ -22,6 +26,12 @@ from stochasticdecomposition_tpu.runner import (
 from stochasticdecomposition_tpu.sampler import sample_omega as jax_sample
 
 CPU = torch.device("cpu")
+
+# The suite runs in several pytest workers on one host.  The LPs and pools
+# here are a few rows wide and gain nothing from torch's intra-op threads,
+# while a full thread pool in every worker oversubscribes the cores and its
+# idle threads spin: one thread per worker.
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -32,13 +42,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Instances with random technology (C) coefficients, as the JAX package's
+# own tests build them (tests/test_sdcut.py:70, tests/test_e2e.py:52).
+RANDC = {
+    "randc_s11": dict(seed=11, n_rv=2, support=2, rand_C=2),
+    "randc_s2": dict(seed=2, n_rv=2, support=2, rand_C=2, n2=6, m2=4),
+}
+
+
+def _parsed(name, port):
+    if name in RANDC:
+        return (parse_synthetic if port else jax_parse_synthetic)(
+            **RANDC[name])
+    return (load_instance if port else jax_load_instance)(name)
+
+
 def port_problem(name):
-    core, tim, stoc = load_instance(name)
+    core, tim, stoc = _parsed(name, port=True)
     return attach_stoc(decompose(core, tim, stoc), stoc)
 
 
 def jax_solver(name, **cfg):
-    core, tim, stoc = jax_load_instance(name)
+    core, tim, stoc = _parsed(name, port=False)
     sp = jax_attach_stoc(jax_decompose(core, tim, stoc), stoc)
     return JaxSolver(sp, JaxConfig(EVAL_FLAG=False, **cfg))
 
@@ -52,11 +77,24 @@ def to_port_state(jax_state):
     return state_from_numpy(jax_fields(jax_state), device=CPU)
 
 
-def jax_step_draw(js, state):
-    """The raw observation the JAX step will draw from ``state``: the same
-    key split and sampler call as core/step.py makes."""
+def jax_step_draw(js, state, batch=1):
+    """The raw observations the JAX step will draw from ``state``: the same
+    key split and sampler call as core/step.py makes ([R] at batch 1, else
+    [batch, R])."""
     _, k_draw = jax.random.split(state.key)
-    return np.array(jax_sample(js.spec, k_draw, 1, dtype=jnp.float64)[0])
+    w = np.array(jax_sample(js.spec, k_draw, batch, dtype=jnp.float64))
+    return w[0] if batch == 1 else w
+
+
+def jax_chunk_draws(js, state, steps, batch):
+    """The draws of ``steps`` consecutive JAX steps from ``state`` (the key
+    each step leaves behind feeds the next): [steps, batch, R]."""
+    key, out = state.key, []
+    for _ in range(steps):
+        key, k_draw = jax.random.split(key)
+        out.append(np.array(jax_sample(js.spec, k_draw, batch,
+                                       dtype=jnp.float64)))
+    return np.stack(out)
 
 
 def jax_states(js, steps, seed=0):
