@@ -46,11 +46,39 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 the incumbent's exact objective) and a fixed 2 x 512 lanes
                 on the stormlike_b8 incumbent: UB, CI, count, dropped
                 lanes, LPs/s and pivots/s.
+ 10. feastest — feasibility mode at the default capacities, FEAS_ITERS
+                iterations (the bootstrap lower bound leaves out the
+                feasibility cuts, so feastest has no certified stop in
+                either package): feasibility rounds > 0, the incumbent meets
+                x1 + x2 >= 6, exact gap; launches count the cuts formed
+                after each resolve.
+ 11. fleetminilike — random cost coefficients (81 enumerable scenarios) at
+                the default capacities to the certified stop: exact gap,
+                basis pool, peak memory, no argmax kernel launch (the
+                random-cost cut uses triple_argmax_randcost); on the final
+                state the blockwise random-cost argmax equals the
+                materialized [B, O] table's masked max (heights exactly,
+                indices up to equal heights), and its time per cut.
+ 12. baa99-20like — random costs (20 RHS RVs, 4 cost RVs, second stage
+                40 x 60) at the default capacities, to the certified stop or
+                BAA_ITERS iterations: seconds per iteration, basis pool, the
+                blockwise check, and STOCH_CHECK: on 32 stored observations
+                every valid random-cost height at the final candidate is at
+                most the subproblem's optimal value + 1e-6.
+ 13. lands_lp — the LP master (MASTER_TYPE 0), LP_ITERS iterations: no
+                statistical stop, and the evaluated UB within 2 % of the
+                extensive-form optimum.
+ 14. intcaplike_miqp — the MIQP master (MASTER_TYPE 7), MAX_ITER 120,
+                MIN_ITER 40: the incumbent is integral and its exact cost
+                within 1 % of the integer optimum found by enumerating the
+                integer grid; branch-and-bound nodes and waves per
+                iteration.
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
-drives the path and requires, just after, as many launches as cuts formed;
-it then times the kernel on the height table of its final state (the n_sel
-its pools reached) and holds it there against the plain version.
+drives the path and requires, just after, as many launches as cuts formed
+(none on the random-cost phases); it then times the kernel on the height
+table of its final state (the n_sel its pools reached) and holds it there
+against the plain version.
 
 Then a line with the card as nvidia-smi gives it, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.
@@ -73,6 +101,17 @@ EVAL_LIMIT = 0.01                # UB against the exact objective
 STORM_EVAL_LANES = 512
 # Random-C instance (the JAX package's tests/test_e2e.py:52).
 RANDC = dict(seed=2, n_rv=2, support=2, rand_C=2, n2=6, m2=4)
+INSTANCES = ("lands", "pgp2like", "feastest", "intcaplike")
+# The default configuration's pool capacities (MAX_ITER=5000: O=5120,
+# L=S=7501, and the basis pool B=7501) for runs cut to fewer iterations.
+DEFAULT_CAPS = dict(MAX_OMEGA=5001, MAX_LAMBDA=7501, MAX_SIGMA=7501,
+                    MAX_BASES=7501)
+FEAS_ITERS = 300
+BAA_ITERS = 300
+LP_ITERS = 150
+LP_UB_LIMIT = 0.02               # LP-master UB against the optimum
+MIQP_LIMIT = 0.01                # MIQP incumbent against the integer optimum
+STOCH_CHECK_OBS = 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 ARGMAX_SHAPES = [(37, 128), (300, 256), (3000, 1024), (1001, 777),
                  (7501, 5120)]
@@ -241,20 +280,35 @@ def load_problem(name):
     if name == "randc":
         core, tim, stoc = parse_synthetic(**RANDC)
     else:
-        load = load_instance if name in OPTIMA else load_suite_instance
+        load = load_instance if name in INSTANCES else load_suite_instance
         core, tim, stoc = load(name)
     return attach_stoc(decompose(core, tim, stoc), stoc)
 
 
-def run_sd(name, dev, cfg, lanes=False, evaluate=False):
+def run_sd(name, dev, cfg, lanes=False, evaluate=False, bnb=False):
     """One replication through SDSolver, the user's entry point (``run``,
     with its evaluation, when ``evaluate``); returns (solver, result,
-    kernel launches during the run, recorder)."""
+    kernel launches during the run, recorder).  The kernel is launched
+    once per cut formed, except on random-cost problems, whose cut takes
+    the random-cost argmax.  ``bnb`` counts the branch-and-bound master's
+    nodes and waves in ``rec.bnb``."""
     from stochasticdecomposition_torch.ops import argmax
     from stochasticdecomposition_torch.runner import SDSolver
 
     solver = SDSolver(load_problem(name), cfg, device=dev)
     rec = Recorder(lanes)
+    if bnb:
+        mip = solver.mip_master
+        rec.bnb = {"calls": 0, "nodes": 0, "waves": 0}
+
+        def counted(state):
+            r = mip(state)
+            rec.bnb["calls"] += 1
+            rec.bnb["nodes"] += r.nodes
+            rec.bnb["waves"] += r.waves
+            return r
+
+        solver.mip_master = counted
     argmax.launches = 0
     if evaluate:
         t = time.monotonic()
@@ -265,7 +319,8 @@ def run_sd(name, dev, cfg, lanes=False, evaluate=False):
         res = solver.solve_replication(0, metrics=rec)
     torch.cuda.synchronize()
     launches = argmax.launches
-    if launches != res.cuts_formed:
+    expected = 0 if solver.pa.rv_d_cols.shape[0] else res.cuts_formed
+    if launches != expected:
         fail(f"{name}: {launches} kernel launches for {res.cuts_formed} "
              "cuts formed")
     return solver, res, launches, rec
@@ -315,33 +370,270 @@ def exact_check(solver, name, x):
     return exact, opt, abs(exact - opt) / abs(opt)
 
 
-def phase_to_stop(name, dev, cfg, flush, evaluate=False):
-    """SD to the certified stop; returns (JSON fields, solver, result)."""
+def run_fields(name, dev, cfg, evaluate=False, bnb=False, exact=True):
+    """A replication and the JSON fields every SD phase reports, with the
+    incumbent's exact objective and gap when ``exact`` (finite support);
+    returns (fields, solver, result, recorder)."""
+    start = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    solver, res, launches, rec = run_sd(name, dev, cfg, evaluate=evaluate)
-    exact, opt, gap = exact_check(solver, name, res.incumb_x)
+    solver, res, launches, rec = run_sd(name, dev, cfg, evaluate=evaluate,
+                                        bnb=bnb)
+    peak = torch.cuda.max_memory_allocated(dev)
     batch = cfg.SAMPLE_INCREMENT
     out = {"sample_increment": batch, "stop_iteration": res.iterations,
            "steps": res.iterations // batch, "certified": res.optimal,
-           "sd_seconds": res.time_total, "launches": launches,
+           "sd_seconds": res.time_total,
+           "seconds_per_iteration": res.time_total / max(res.iterations, 1),
+           "launches": launches,
            "cuts_formed": res.cuts_formed, "lps": res.lp_count,
-           "exact_objective": exact, "optimum": opt, "exact_gap": gap,
-           "incumb_est": res.incumb_est, "pools": res.pool_sizes,
+           "incumb_est": res.incumb_est, "incumb_x": res.incumb_x.tolist(),
+           "pools": res.pool_sizes,
            "caps": solver.caps._asdict(), "full_tests": res.full_tests,
+           "feas_rounds": res.feas_rounds,
            "master_failures": res.master_failures,
            "pivots_per_lp": res.lp_pivots / max(res.lp_count, 1),
            "ipm_iters_per_master": res.qp_iters / max(res.iterations //
                                                       batch, 1),
-           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+           "peak_allocated_bytes": peak,
+           # The run's own peak: without the flush buffer and what earlier
+           # phases still hold.
+           "peak_above_start_bytes": peak - start}
+    if exact:
+        out["exact_objective"], out["optimum"], out["exact_gap"] = \
+            exact_check(solver, name, res.incumb_x)
+    return out, solver, res, rec
+
+
+def check_gap(name, out):
+    if out["exact_gap"] > GAP_LIMIT:
+        fail(f"{name}: exact gap {out['exact_gap']} exceeds {GAP_LIMIT} "
+             f"({out})")
+
+
+def phase_to_stop(name, dev, cfg, flush, evaluate=False):
+    """SD to the certified stop; returns (JSON fields, solver, result)."""
+    out, solver, res, rec = run_fields(name, dev, cfg, evaluate=evaluate)
+    check_gap(name, out)
     if not res.optimal:
         fail(f"{name}: no certified stop before MAX_ITER ({out})")
-    if gap > GAP_LIMIT:
-        fail(f"{name}: exact gap {gap} exceeds {GAP_LIMIT} ({out})")
-    if launches <= 0:
+    if out["launches"] <= 0:
         fail(f"{name}: the argmax kernel was never launched")
     if rec.last is not None:
         out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
     return out, solver, res, rec
+
+
+def phase_feastest(dev, flush):
+    """Feasibility mode for FEAS_ITERS iterations at the default
+    capacities."""
+    from stochasticdecomposition_torch.config import SDConfig
+
+    cfg = SDConfig(EVAL_FLAG=False, MAX_ITER=FEAS_ITERS, **DEFAULT_CAPS)
+    from stochasticdecomposition_torch.core.stopping import (
+        bootstrap_bounds, bootstrap_draws,
+    )
+    from stochasticdecomposition_torch.runner import replication_generators
+
+    out, solver, res, rec = run_fields("feastest", dev, cfg)
+    check_gap("feastest", out)
+    x = res.incumb_x
+    out["induced_lhs"] = float(x[0] + x[1])
+    # Why no certified stop: the full test's two sides on the final state
+    # (median over the resamples) and the proximal term they divide by.
+    st = rec.last
+    draws = bootstrap_draws(st, replication_generators(0, dev)[1],
+                            cfg.BOOTSTRAP_REP)
+    bounds = bootstrap_bounds(solver.pa, cfg, st, draws)
+    out["final_full_test"] = None if bounds is None else {
+        "est_median": float(torch.median(bounds[0])),
+        "lb_median": float(torch.median(bounds[1])),
+        "quad_scalar": float(st.quad_scalar),
+        "incumb_chg": st.incumb_chg}
+    if res.feas_rounds <= 0:
+        fail(f"feastest: feasibility mode never ran ({out})")
+    if x[0] + x[1] < 6.0 - 1e-6:
+        fail(f"feastest: incumbent {x} violates x1 + x2 >= 6")
+    if res.iterations != FEAS_ITERS or out["launches"] <= 0:
+        fail(f"feastest: {out}")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out
+
+
+def randcost_argmax_check(solver, state, flush):
+    """The blockwise random-cost argmax on the final state against the
+    materialized [B, O] table: heights exactly, indices up to equal heights;
+    the time of each (CUDA events, median), the basis rows it scans."""
+    import math
+
+    from stochasticdecomposition_torch.core.randcost import (
+        height_table_randcost, triple_argmax_randcost,
+    )
+
+    pa, x, k = solver.pa, state.candid_x, state.k
+    ns_eff = k - math.floor(0.1 * float(k) + 1)
+    og, ng = state.basis_ck <= ns_eff, state.basis_ck > ns_eff
+
+    def blockwise():
+        return triple_argmax_randcost(pa, state, x, og, ng)
+
+    def materialized():
+        H, valid, _ = height_table_randcost(pa, state, x)
+        out = []
+        for gate in (None, og, ng):
+            m = valid if gate is None else valid & gate[:, None]
+            Hm = torch.where(m, H, -1e300)
+            out += [torch.argmax(Hm, dim=0), torch.amax(Hm, dim=0)]
+        return out, H
+
+    got = blockwise()
+    want, H = materialized()
+    torch.cuda.synchronize()
+    cols = torch.arange(H.shape[1], device=H.device)
+    for j in range(3):
+        i_got, h_got, h_want = got[2 * j], got[2 * j + 1], want[2 * j + 1]
+        if not torch.equal(h_got, h_want):
+            fail(f"random-cost argmax: heights differ from the materialized "
+                 f"table (mask {j})")
+        live = h_want > -1e299
+        if not torch.equal(H[i_got, cols][live], h_want[live]):
+            fail(f"random-cost argmax: an index off the max (mask {j})")
+    # Indices that differ from the materialized argmax, each at a height
+    # equal to the max (shown above).
+    ties = int(sum(torch.sum(got[2 * j] != want[2 * j]) for j in range(3)))
+    del H, want
+    # The bytes the function must move: the delta_pib rows of the lambda
+    # entries the live bases reference, their obs_feas rows, six [O]
+    # outputs.
+    live = min(state.basis_cnt, state.basis_sigma0.shape[0])
+    sig = torch.cat([state.basis_sigma0[:live, None],
+                     state.basis_sigma_idx[:live]], dim=1)
+    rows = int(torch.unique(state.sigma_lidx[sig]).shape[0])
+    O = state.omega_vals.shape[0]
+    nbytes = rows * O * 8 + live * O + 48 * O
+    return {"basis_rows": live, "lambda_rows": rows, "index_ties": ties,
+            "ms": cuda_ms(blockwise, 10, flush),
+            "materialized_ms": cuda_ms(lambda: materialized()[0], 3, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+def phase_randcost(name, dev, cfg, flush, exact):
+    """A random-cost replication at the default capacities."""
+    out, solver, res, rec = run_fields(name, dev, cfg, exact=exact)
+    if exact:
+        check_gap(name, out)
+    st = rec.last
+    out["basis_cnt"] = st.basis_cnt
+    out["pool_bytes"] = solver.pool_bytes["total"]
+    if out["launches"] != 0:
+        fail(f"{name}: the plain argmax kernel ran on a random-cost cut")
+    out["randcost_argmax"] = randcost_argmax_check(solver, st, flush)
+    return out, solver, res, rec
+
+
+def stoch_check(solver, state, n_obs):
+    """STOCH_CHECK: at the final candidate, the best valid random-cost
+    height of each of the first ``n_obs`` stored observations is at most
+    the subproblem's optimal value + 1e-6 (weak duality); returns the
+    largest excess and how many are exact to 1e-7."""
+    from stochasticdecomposition_torch.core.randcost import (
+        height_table_randcost,
+    )
+    from stochasticdecomposition_torch.core.update import (
+        subproblem_rhs_cost_lanes,
+    )
+    from stochasticdecomposition_torch.ops.simplex import (
+        STATUS_OPTIMAL, solve_lp,
+    )
+
+    pa, x = solver.pa, state.candid_x
+    n = min(n_obs, state.omega_cnt)
+    H, valid, _ = height_table_randcost(pa, state, x)
+    hstar = torch.amax(torch.where(valid, H, -1e300), dim=0)[:n]
+    del H, valid
+    rhs, cost = subproblem_rhs_cost_lanes(pa, x, state.omega_vals[:n])
+    res = solve_lp(pa.D, pa.sense2, cost, pa.l2, pa.u2, rhs)
+    if not bool(torch.all(res.status == STATUS_OPTIMAL)):
+        fail("STOCH_CHECK: a subproblem was not solved to optimality")
+    excess = hstar - res.obj
+    worst = float(torch.amax(excess))
+    if worst > 1e-6:
+        fail(f"STOCH_CHECK: a random-cost height exceeds the subproblem's "
+             f"optimal value by {worst}")
+    return {"observations": n, "max_excess": worst,
+            "exact": int(torch.sum(torch.abs(excess) < 1e-7))}
+
+
+def phase_lands_lp(dev, flush):
+    """The LP master for LP_ITERS iterations, then the evaluation."""
+    from stochasticdecomposition_torch.config import MASTER_LP, SDConfig
+
+    cfg = SDConfig(EVAL_FLAG=True, MASTER_TYPE=MASTER_LP, MAX_ITER=LP_ITERS,
+                   **DEFAULT_CAPS)
+    out, solver, res, rec = run_fields("lands", dev, cfg, evaluate=True)
+    ev = res.eval
+    out["eval"] = eval_fields(solver, ev, rec.eval_seconds)
+    out["ub_vs_optimum"] = (ev.mean - out["optimum"]) / abs(out["optimum"])
+    if res.optimal or res.iterations != LP_ITERS:
+        fail(f"lands_lp: the LP master stopped early ({out})")
+    if not -0.01 < out["ub_vs_optimum"] < LP_UB_LIMIT:
+        fail(f"lands_lp: UB {ev.mean} off the optimum ({out})")
+    if out["launches"] <= 0:
+        fail("lands_lp: the argmax kernel was never launched")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out
+
+
+def integer_optimum(solver):
+    """The integer first stage of least exact cost, by enumerating every
+    integer point of the first-stage box that meets the first-stage rows."""
+    import itertools
+
+    from stochasticdecomposition_torch.models.extensive import (
+        enumerate_scenarios, exact_objective_fn,
+    )
+
+    pa = solver.pa
+    outs, probs = enumerate_scenarios(solver.sp._stoc, solver.sp.rv_order)
+    cost = exact_objective_fn(pa, outs, probs)
+    lo, hi = pa.l1.cpu().numpy(), pa.u1.cpu().numpy()
+    A, b, sense = (t.cpu().numpy() for t in (pa.A1, pa.b1, pa.sense1))
+    best = (np.inf, None)
+    for x in itertools.product(*(range(int(np.ceil(a)), int(np.floor(c)) + 1)
+                                 for a, c in zip(lo, hi))):
+        lhs = A @ np.asarray(x, float)
+        if np.any((sense > 0) & (lhs < b - 1e-9)) or \
+                np.any((sense < 0) & (lhs > b + 1e-9)) or \
+                np.any((sense == 0) & (np.abs(lhs - b) > 1e-9)):
+            continue
+        best = min(best, (cost(np.asarray(x, float)), x))
+    return best, cost
+
+
+def phase_intcap_miqp(dev, flush):
+    """The MIQP master with the branch-and-bound on intcaplike."""
+    from stochasticdecomposition_torch.config import MASTER_MIQP, SDConfig
+
+    cfg = SDConfig(EVAL_FLAG=False, MASTER_TYPE=MASTER_MIQP, MAX_ITER=120,
+                   MIN_ITER=40, **DEFAULT_CAPS)
+    out, solver, res, rec = run_fields("intcaplike", dev, cfg, bnb=True,
+                                       exact=False)
+    (opt, x_opt), cost = integer_optimum(solver)
+    xi = res.incumb_x
+    got = cost(np.round(xi))
+    out.update(integer_optimum=opt, integer_optimum_x=list(x_opt),
+               incumbent_cost=got, integer_gap=(got - opt) / abs(opt),
+               bnb=rec.bnb,
+               bnb_nodes_per_iteration=rec.bnb["nodes"] / res.iterations,
+               bnb_waves_per_iteration=rec.bnb["waves"] / res.iterations)
+    if not np.allclose(xi, np.round(xi), atol=1e-6):
+        fail(f"intcaplike_miqp: incumbent {xi} is not integral")
+    if out["integer_gap"] > MIQP_LIMIT:
+        fail(f"intcaplike_miqp: incumbent cost {got} is off the integer "
+             f"optimum {opt} ({out})")
+    if out["launches"] <= 0 or rec.bnb["calls"] != res.iterations:
+        fail(f"intcaplike_miqp: {out}")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out
 
 
 def phase_storm(dev, flush):
@@ -549,6 +841,45 @@ def main() -> None:
             not np.isfinite(ev.mean):
         fail(f"eval stormlike: {ev}")
     emit({"phase": "eval", **ev_out, "seconds": time.monotonic() - t})
+    # The phases below start from the flush buffer alone.
+    del storm, storm_res, evals, solver, res, rec
+
+    t = time.monotonic()
+    out = phase_feastest(dev, flush)
+    launches["feastest"] = out["launches"]
+    emit({"phase": "feastest", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_randcost("fleetminilike", dev, SDConfig(EVAL_FLAG=False),
+                         flush, True)[0]
+    if not out["certified"]:
+        fail(f"fleetminilike: no certified stop before MAX_ITER ({out})")
+    launches["fleetminilike"] = out["launches"]
+    emit({"phase": "fleetminilike", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    # nd = 4 cost RVs: lambda and sigma hold 4 * 5000 + 2501 rows.
+    cfg = SDConfig(EVAL_FLAG=False, MAX_ITER=BAA_ITERS,
+                   **{**DEFAULT_CAPS, "MAX_LAMBDA": 22501,
+                      "MAX_SIGMA": 22501})
+    # Its 5^20 x 5^4 scenarios are not enumerable: STOCH_CHECK instead.
+    out, solver, res, rec = phase_randcost("baa99-20like", dev, cfg, flush,
+                                           False)
+    out["stoch_check"] = stoch_check(solver, rec.last, STOCH_CHECK_OBS)
+    del solver, res, rec
+    launches["baa99-20like"] = out["launches"]
+    emit({"phase": "baa99-20like", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_lands_lp(dev, flush)
+    launches["lands_lp"] = out["launches"]
+    emit({"phase": "lands_lp", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_intcap_miqp(dev, flush)
+    launches["intcaplike_miqp"] = out["launches"]
+    emit({"phase": "intcaplike_miqp", **out,
+          "seconds": time.monotonic() - t})
 
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
     print(smi, flush=True)

@@ -11,9 +11,9 @@ nothing: SUBPROB_F32_PIVOT and EVAL_F32_PIVOT (the port pivots in f64, the
 card's native type), SUBPROB_STAGED_BATCH (a guard against a TPU kernel
 fault; the port solves all lanes in one pass, up to
 ops/simplex.lane_cap, which is sized for the card's memory) and
-MEMORY_BUDGET_GB.  MASTER_TYPE other than 5 and random cost coefficients
-raise NotImplementedError when the solver is built
-(core/step.check_supported).
+MEMORY_BUDGET_GB.  Every MASTER_TYPE runs (the LP, MILP, QP and MIQP
+masters); MULTIPLE_REP > 1 and COMPROMISE_PROB raise NotImplementedError in
+``SDSolver.run`` (ROADMAP A15).
 """
 
 from __future__ import annotations

@@ -51,7 +51,7 @@ class CutParts(NamedTuple):
     found: bool               # every active obs had a valid vertex
 
 
-def _accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
+def accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
     """Weighted (alpha, beta) sums over observations (cuts.c:160-168,184-188)."""
     n1 = pa.c1.shape[0]
     dtype = state.sigma_pib.dtype
@@ -74,30 +74,39 @@ def _accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
     return alpha, beta / k
 
 
+def cut_argmax(pa: ProblemArrays, state: SDState, x, ns_eff: int):
+    """computeIstar's three masked argmaxes over the sigma pool at x
+    (cuts.c:147-157) in one pass of the CUDA kernel: all valid vertices,
+    the "old" ones (found at ``ck <= ns_eff``) and the "new" ones.
+    Returns (i_all, h_all, i_old, h_old, i_new, h_new, o_valid), each [O];
+    with dual stability off the old/new outputs are simply unused."""
+    H, s_valid, o_valid = height_table(pa, state, x)
+    om1 = s_valid & (state.sigma_ck <= ns_eff)
+    nm1 = s_valid & (state.sigma_ck > ns_eff)
+    return (*triple_masked_argmax(H, s_valid, om1, nm1), o_valid)
+
+
 def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
              dual_stability: bool, pi_eval_start: int, pi_cycle: int,
-             scan_len: int, batch: int = 1):
+             scan_len: int, batch: int = 1, argmax=cut_argmax,
+             accumulate=accumulate):
     """SDCut (cuts.c:91-194): argmax over the vertex pool for every
     observation, weighted cut coefficients, and the dual-stability update.
     ``k`` counts samples; with ``batch`` samples per step the ratio window
     holds one entry per step and ``scan_len`` counts steps
     (``SDConfig.eff_scan_len``).  Returns (CutParts, state) — state carries
-    the pi_ratio/dual_stable update."""
-    if int(pa.rv_d_cols.shape[0]) > 0:
-        raise NotImplementedError(
-            "random cost coefficients (the v2.0 cut path) are not ported yet")
+    the pi_ratio/dual_stable update.
+
+    ``argmax`` and ``accumulate`` are the plain path's; random cost
+    coefficients pass core/randcost.py's, whose pool axis is the basis
+    pool and whose heights carry the cost multipliers (the JAX package's
+    core/cuts.py:123-136)."""
     dtype = state.sigma_pib.dtype
     # 10% holdout split (computeIstar:147-157): "old" vertices were found
     # at ck <= k - (0.1k + 1); "new" ones after.
     ns_eff = k - math.floor(0.1 * float(k) + 1)
-
-    H, s_valid, o_valid = height_table(pa, state, x)
-    om1 = s_valid & (state.sigma_ck <= ns_eff)
-    nm1 = s_valid & (state.sigma_ck > ns_eff)
-    # One pass over H for all three masked reductions; with dual stability
-    # off the old/new outputs are simply unused.
-    i_all, h_all, i_old, h_old, i_new, h_new = triple_masked_argmax(
-        H, s_valid, om1, nm1)
+    i_all, h_all, i_old, h_old, i_new, h_new, o_valid = argmax(
+        pa, state, x, ns_eff)
 
     if dual_stability:
         # pi_eval gate (cuts.c:112-113): every PI_CYCLE iters past the start.
@@ -136,7 +145,7 @@ def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
     else:
         istar, hstar = i_all, h_all
 
-    alpha, beta = _accumulate(pa, state, istar, o_valid, k)
+    alpha, beta = accumulate(pa, state, istar, o_valid, k)
     found = bool(torch.all(~o_valid | (hstar > _NEG / 2)))
     return CutParts(alpha=alpha, beta=beta, istar=istar, height=hstar,
                     found=found), state

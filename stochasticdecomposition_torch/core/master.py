@@ -1,4 +1,6 @@
-"""Regularized QP master in d-space (MASTER_TYPE 5).
+"""The master problem: the regularized QP in d-space (MASTER_TYPE 5, and
+the relaxations of MIQP's 7) and the LP in x-space (MASTER_TYPE 0, and the
+relaxations of MILP's 1).
 
 Reference: master.c.  The reference mutates a persistent CPLEX model
 (changeEtaCol k/j rescaling at master.c:146-161, RHS lb-shifts at
@@ -16,12 +18,14 @@ Variables v = [d ; eta], d = x - incumbent:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
 from stochasticdecomposition_torch.ops.qp import solve_qp
+from stochasticdecomposition_torch.ops.simplex import STATUS_OPTIMAL, solve_lp
 
 
 class MasterResult(NamedTuple):
@@ -33,11 +37,14 @@ class MasterResult(NamedTuple):
     dj: torch.Tensor          # [n1] reduced costs (bound duals, zl - zu)
     obj: torch.Tensor
     ok: bool                  # converged flag
-    iters: int                # interior-point iterations
+    iters: int                # interior-point iterations (LP: pivots)
 
 
 def build_and_solve_master(pa: ProblemArrays, state: SDState, k: int,
-                           *, tol: float = 1e-9) -> MasterResult:
+                           *, tol: float = 1e-9, l1=None,
+                           u1=None) -> MasterResult:
+    """``l1``/``u1`` replace the first-stage bounds: the box of a
+    branch-and-bound node (core/bnb.py)."""
     dtype, dev = pa.c1.dtype, pa.c1.device
     n1 = pa.c1.shape[0]
     m1 = pa.b1.shape[0]
@@ -79,8 +86,8 @@ def build_and_solve_master(pa: ProblemArrays, state: SDState, k: int,
     h_f = -f_rhs
 
     # Bound rows on d (infinite bounds masked off).
-    lo_d = pa.l1 - xbar
-    up_d = pa.u1 - xbar
+    lo_d = (pa.l1 if l1 is None else l1) - xbar
+    up_d = (pa.u1 if u1 is None else u1) - xbar
     eye = torch.eye(n1, dtype=dtype, device=dev)
     zcol = torch.zeros((n1, 1), dtype=dtype, device=dev)
     G_up = torch.cat([eye, zcol], dim=1)
@@ -123,3 +130,82 @@ def build_and_solve_master(pa: ProblemArrays, state: SDState, k: int,
         pi_first=pi_first, pi_cuts=pi_cuts, dj=z_lo - z_up,
         obj=res.obj, ok=res.converged, iters=res.iters,
     )
+
+
+def master_lp_data(pa: ProblemArrays, state: SDState, k: int):
+    """The LP master (master.c:41 with MASTER_TYPE 0) as ``solve_lp`` takes
+    it: variables [x; eta],
+
+        min  c'x + eta
+        s.t. A1 x {sense} b1
+             (k/ns_j) eta + beta_j'x >= alpha_j + (k/ns_j - 1) lb
+             beta_f'x >= alpha_f
+             l <= x <= u,  eta >= lb
+
+    Inactive cut slots are all-zero rows with zero right-hand side.  The
+    reference's LP branch is vestigial (master.c:63 reads the NULL incumbX);
+    this is the JAX package's completed LP mode.  Returns (D, sense, c, lo,
+    hi, b); the first n1 entries of lo and hi are the first-stage bounds."""
+    dtype, dev = pa.c1.dtype, pa.c1.device
+    m1 = pa.b1.shape[0]
+    K = state.cut_mask.shape[0]
+    F = state.fcut_mask.shape[0]
+    ns = torch.clamp(state.cut_ns, min=1).to(dtype)
+    eta_coef = torch.where(state.cut_mask, k / ns, 0.0)
+    cut_rhs = torch.where(state.cut_mask,
+                          state.cut_alpha + (k / ns - 1.0) * pa.lb, 0.0)
+    cut_beta = torch.where(state.cut_mask[:, None], state.cut_beta, 0.0)
+    f_beta = torch.where(state.fcut_mask[:, None], state.fcut_beta, 0.0)
+    f_rhs = torch.where(state.fcut_mask, state.fcut_alpha, 0.0)
+
+    def zcol(rows):
+        return torch.zeros((rows, 1), dtype=dtype, device=dev)
+
+    D = torch.cat([torch.cat([pa.A1, zcol(m1)], dim=1),
+                   torch.cat([cut_beta, eta_coef[:, None]], dim=1),
+                   torch.cat([f_beta, zcol(F)], dim=1)], dim=0)
+    b = torch.cat([pa.b1, cut_rhs, f_rhs])
+    sense = torch.cat([pa.sense1, torch.ones(K + F, dtype=pa.sense1.dtype,
+                                             device=dev)])
+    one = torch.ones(1, dtype=dtype, device=dev)
+    c = torch.cat([pa.c1, one])
+    lo = torch.cat([pa.l1, pa.lb * one])
+    hi = torch.cat([pa.u1, math.inf * one])
+    return D, sense, c, lo, hi, b
+
+
+def solve_master_lp_lanes(pa: ProblemArrays, state: SDState, k: int,
+                          l1=None, u1=None) -> MasterResult:
+    """The LP master for W first-stage boxes at once, as the lanes of one
+    ``solve_lp`` call: ``l1``/``u1`` are [W, n1] (None: the problem's own
+    bounds, one lane).  Every field of the result carries the lane axis."""
+    D, sense, c, lo, hi, b = master_lp_data(pa, state, k)
+    n1 = pa.c1.shape[0]
+    m1 = pa.b1.shape[0]
+    K = state.cut_mask.shape[0]
+    if l1 is None:
+        lo_w, hi_w = lo[None], hi[None]
+    else:
+        W = l1.shape[0]
+        lo_w = torch.cat([l1, lo[n1:].expand(W, -1)], dim=1)
+        hi_w = torch.cat([u1, hi[n1:].expand(W, -1)], dim=1)
+    W = lo_w.shape[0]
+    res = solve_lp(D, sense, c.expand(W, -1), lo_w, hi_w, b.expand(W, -1),
+                   max_iter=8 * (D.shape[0] + n1 + 1) + 256)
+    x = res.y[:, :n1]
+    d = x - state.candid_x
+    # solve_lp's duals follow the CPLEX minimization convention (>= rows
+    # nonnegative); the cut-row duals feed the eviction slack test.
+    return MasterResult(
+        x=x, eta=res.y[:, n1], d_norm2=torch.sum(d * d, dim=1),
+        pi_first=res.pi[:, :m1], pi_cuts=res.pi[:, m1:m1 + K] * state.cut_mask,
+        dj=res.dj[:, :n1], obj=res.obj, ok=res.status == STATUS_OPTIMAL,
+        iters=res.iters)
+
+
+def build_and_solve_master_lp(pa: ProblemArrays, state: SDState, k: int,
+                              ) -> MasterResult:
+    """The LP master (``master_lp_data``) at the problem's own bounds."""
+    res = solve_master_lp_lanes(pa, state, k)
+    return MasterResult(*(f[0] for f in res[:-2]), ok=bool(res.ok[0]),
+                        iters=int(res.iters[0]))

@@ -57,6 +57,9 @@ class ProblemArrays(NamedTuple):
     # Scalars.
     lb: float                 # lower bound on E[h]
     lb_nontrivial: bool
+    # First-stage integrality (MASTER_TYPE 1/7, master.c:331); all False
+    # for a continuous first stage.
+    int1: torch.Tensor        # [n1] bool
 
 
 class SDState(NamedTuple):
@@ -86,6 +89,25 @@ class SDState(NamedTuple):
     delta_pib: torch.Tensor     # [L, O]
     delta_piC: torch.Tensor     # [L, O, nCr]
 
+    # basisType (stoc.h:72-97), the random-cost (v2.0) path; 1-slot
+    # placeholders without random costs.  As in the JAX package the phi
+    # columns are indexed by the cost RV they belong to (basis_present)
+    # instead of the reference's packed arrays.
+    basis_cstat: torch.Tensor   # [B, n2] int8 column status (dedup + feas)
+    basis_rstat: torch.Tensor   # [B, m2] int8
+    basis_phi: torch.Tensor     # [B, nd, m2] dual-basis-inverse rows
+    basis_present: torch.Tensor  # [B, nd] bool: cost RV n basic here
+    basis_sigma0: torch.Tensor  # [B] int64 sigma entry of piDet
+    basis_sigma_idx: torch.Tensor  # [B, nd] int64 sigma entry per phi col
+    basis_pidet: torch.Tensor   # [B, m2]
+    basis_gbar: torch.Tensor    # [B, n2] deterministic reduced costs
+    basis_psi: torch.Tensor     # [B, nd, n2] tableau rows of phi positions
+    basis_mub: torch.Tensor     # [B]
+    basis_ck: torch.Tensor      # [B] int64
+    basis_feas: torch.Tensor    # [B] bool
+    basis_cnt: int
+    obs_feas: torch.Tensor      # [B, O] bool: basis dual-feasible at obs
+
     # cutsType (twoSD.h:69-85): fixed slots, masked
     cut_alpha: torch.Tensor     # [K]
     cut_beta: torch.Tensor      # [K, n1]
@@ -93,11 +115,13 @@ class SDState(NamedTuple):
     cut_omega_cnt: torch.Tensor  # [K] int64
     cut_istar: torch.Tensor     # [K, O] int64
     cut_mask: torch.Tensor      # [K] bool
-    # feasibility cut slots (always empty on this path; their masked rows
-    # still take part in the master QP, as in the JAX package)
+    # feasibility cut slots (cell->fcuts), filled in feasibility mode
+    # (core/feasibility.py) from the host-side feasibility cut pool
     fcut_alpha: torch.Tensor    # [F]
     fcut_beta: torch.Tensor     # [F, n1]
     fcut_mask: torch.Tensor     # [F] bool
+    f_updt: tuple               # (sigma, omega) counts already crossed
+    #                             into the feasibility cut pool (fUpdt)
 
     # incumbent & master (cellType scalars), 0-d tensors
     candid_x: torch.Tensor      # [n1]
@@ -124,6 +148,9 @@ class SDState(NamedTuple):
     # status
     last_o_idx: int             # omega index of the current iteration
     sp_feas: bool               # every subproblem of the iteration optimal
+    opt_mode: bool              # False while resolving infeasibility
+    infeas_incumb: bool         # a feasibility cut cuts off the incumbent
+    feas_cnt: int               # feasibility-mode rounds
     master_ok: bool             # last master solve converged
     cut_ok: bool                # last cut found a vertex for every obs
 
@@ -181,6 +208,8 @@ def stage_problem(sp: StagedProblem, device: torch.device,
         C_cols=ix(rv.C_cols), bmap=fl(bmap), lam_pos_C=ix(lam_pos_C),
         Cgroup=fl(Cgroup), C_cols_rand=ix(C_cols_rand),
         lb=float(sp.lb), lb_nontrivial=not sp.lb_is_trivial,
+        int1=_t(f.is_int if f.is_int is not None
+                else np.zeros(f.A.shape[1], bool), torch.bool, device),
     )
 
 
@@ -254,8 +283,12 @@ def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
     nlr = pa.lambda_rows.shape[0]
     nCc = pa.C_cols.shape[0]
     nCr = pa.C_cols_rand.shape[0] if pa.C_cols_rand.shape[0] else 1
-    O, L, S, K, F = caps.O, caps.L, caps.S, caps.K, caps.F
+    O, L, S, K, F, B = caps.O, caps.L, caps.S, caps.K, caps.F, caps.B
     m2, n2 = pa.D.shape
+    # The basis pool's inner widths collapse to 1 without random costs.
+    rand_d = pa.rv_d_cols.shape[0] > 0
+    ndb = pa.rv_d_cols.shape[0] if rand_d else 1
+    m2b, n2b, Ob = (m2, n2, O) if rand_d else (1, 1, 1)
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -274,10 +307,19 @@ def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
         sigma_pib=z(S), sigma_piC=z(S, nCc), sigma_lidx=z(S, dt=i64),
         sigma_ck=z(S, dt=i64), sigma_feas=z(S, dt=torch.bool), sigma_cnt=0,
         delta_pib=z(L, O), delta_piC=z(L, O, nCr),
+        basis_cstat=z(B, n2b, dt=torch.int8),
+        basis_rstat=z(B, m2b, dt=torch.int8),
+        basis_phi=z(B, ndb, m2b), basis_present=z(B, ndb, dt=torch.bool),
+        basis_sigma0=z(B, dt=i64), basis_sigma_idx=z(B, ndb, dt=i64),
+        basis_pidet=z(B, m2b), basis_gbar=z(B, n2b), basis_psi=z(B, ndb, n2b),
+        basis_mub=z(B), basis_ck=z(B, dt=i64),
+        basis_feas=z(B, dt=torch.bool), basis_cnt=0,
+        obs_feas=z(B, Ob, dt=torch.bool),
         cut_alpha=z(K), cut_beta=z(K, n1), cut_ns=z(K, dt=i64),
         cut_omega_cnt=z(K, dt=i64), cut_istar=z(K, O, dt=i64),
         cut_mask=z(K, dt=torch.bool),
         fcut_alpha=z(F), fcut_beta=z(F, n1), fcut_mask=z(F, dt=torch.bool),
+        f_updt=(0, 0),
         candid_x=x0, candid_est=candid_est.clone(),
         incumb_x=x0.clone(), incumb_est=candid_est.clone(),
         quad_scalar=sc(cfg.MIN_QUAD_SCALAR), gamma=sc(0.0),
@@ -289,7 +331,8 @@ def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
         eta=sc(0.0),
         pi_ratio=z(caps.scan), dual_stable=not cfg.DUAL_STABILITY,
         ratio_cnt=0,
-        last_o_idx=0, sp_feas=True, master_ok=True, cut_ok=True,
+        last_o_idx=0, sp_feas=True, opt_mode=True, infeas_incumb=False,
+        feas_cnt=0, master_ok=True, cut_ok=True,
         warm_basis=torch.arange(n2, n2 + m2, dtype=i64, device=dev),
         warm_atup=z(n2 + m2, dt=torch.bool),
     )

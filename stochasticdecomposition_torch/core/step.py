@@ -11,16 +11,26 @@ call; the host reads back the few scalars each decision needs.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from stochasticdecomposition_torch.config import MASTER_QP, SDConfig
-from stochasticdecomposition_torch.core.cuts import (
-    add_cut, form_cut, max_cut_height,
+from stochasticdecomposition_torch.config import (
+    MASTER_LP, MASTER_MILP, SDConfig,
 )
-from stochasticdecomposition_torch.core.master import build_and_solve_master
+from stochasticdecomposition_torch.core.cuts import (
+    accumulate, add_cut, cut_argmax, form_cut, max_cut_height,
+)
+from stochasticdecomposition_torch.core.master import (
+    build_and_solve_master, build_and_solve_master_lp,
+)
+from stochasticdecomposition_torch.core.randcost import (
+    accumulate_randcost, cut_argmax_randcost, reform_cuts_randcost,
+    stochastic_updates_randcost, stochastic_updates_randcost_batch,
+)
 from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+from stochasticdecomposition_torch.core.stopping import reform_cuts
 from stochasticdecomposition_torch.core.update import (
     calc_omega, calc_omega_batch, stochastic_updates,
     stochastic_updates_batch, subproblem_rhs_cost_lanes,
@@ -32,16 +42,110 @@ from stochasticdecomposition_torch.ops.simplex import (
 from stochasticdecomposition_torch.sampler import SamplerSpec, sample_omega
 
 
-def check_supported(pa: ProblemArrays, cfg: SDConfig) -> None:
-    """Raise for the configurations this port does not run yet."""
-    if cfg.MASTER_TYPE != MASTER_QP:
-        raise NotImplementedError(
-            f"MASTER_TYPE={cfg.MASTER_TYPE}: only the regularized QP master "
-            "(MASTER_TYPE 5) is ported (ROADMAP A14)")
-    if int(pa.rv_d_cols.shape[0]) > 0:
-        raise NotImplementedError(
-            "random cost coefficients (the v2.0 path) are not ported yet "
-            "(ROADMAP A13)")
+class Path(NamedTuple):
+    """The functions in which the plain path and the random-cost path
+    (v2.0: randCost.c, core/randcost.py) differ, chosen once per problem."""
+    updates: Callable         # stochasticUpdates for one subproblem result
+    updates_batch: Callable   # ... for B results with a lane axis
+    argmax: Callable          # computeIstar's three masked argmaxes
+    accumulate: Callable      # the cut's (alpha, beta)
+    reform: Callable          # reformCuts for the bootstrap
+
+
+def problem_path(pa: ProblemArrays) -> Path:
+    """The random-cost path when the problem has random cost coefficients
+    (``pa.rv_d_cols``), else the plain one, whose argmax is the CUDA
+    kernel."""
+    if pa.rv_d_cols.shape[0]:
+        return Path(stochastic_updates_randcost,
+                    stochastic_updates_randcost_batch, cut_argmax_randcost,
+                    accumulate_randcost, reform_cuts_randcost)
+    return Path(stochastic_updates, stochastic_updates_batch, cut_argmax,
+                accumulate, reform_cuts)
+
+
+def lp_master(cfg: SDConfig) -> bool:
+    """Whether the master is solved as an LP (MASTER_TYPE 0, and the
+    relaxations of MILP's 1): no incumbent and no proximal term."""
+    return cfg.MASTER_TYPE in (MASTER_LP, MASTER_MILP)
+
+
+def _cut(pa: ProblemArrays, cfg: SDConfig, path: Path, state: SDState, x,
+         k: int, incumbent: bool):
+    """SDCut + addCut2Pool on the current pools (cuts.c:40-89); counts the
+    cut in ``cut_cnt``.  Returns (state, slot)."""
+    parts, state = form_cut(
+        pa, state, x, k,
+        dual_stability=cfg.DUAL_STABILITY,
+        pi_eval_start=cfg.PI_EVAL_START,
+        pi_cycle=cfg.PI_CYCLE,
+        # The ratio window holds one entry per step, SCAN_LEN samples.
+        scan_len=cfg.eff_scan_len(), batch=max(1, int(cfg.SAMPLE_INCREMENT)),
+        argmax=path.argmax, accumulate=path.accumulate)
+    state = state._replace(cut_cnt=state.cut_cnt + 1)
+    return add_cut(pa, state, parts, k, incumbent=incumbent,
+                   tol=cfg.TOLERANCE)
+
+
+def _master(pa: ProblemArrays, cfg: SDConfig, state: SDState,
+            k: int) -> SDState:
+    """The master solve and the candidate it gives (algo.c:174,
+    master.c:18-88).  In LP mode the candidate doubles as the reported
+    solution (no incumbent, setup.c:113-119; inout.c:27-30)."""
+    lp = lp_master(cfg)
+    res = (build_and_solve_master_lp if lp else build_and_solve_master)(
+        pa, state, k)
+    candid_est = pa.c1 @ res.x + max_cut_height(pa, state, res.x, k)
+    state = state._replace(
+        candid_x=res.x,
+        candid_est=candid_est,
+        gamma=candid_est - state.incumb_est,
+        norm_dk=res.d_norm2,
+        pi_first=res.pi_first,
+        pi_cuts=res.pi_cuts,
+        dj_master=res.dj,
+        eta=res.eta,
+        master_ok=state.master_ok and res.ok,
+        qp_iters=state.qp_iters + res.iters,
+    )
+    if lp:
+        state = state._replace(incumb_x=res.x.clone(),
+                               incumb_est=candid_est.clone(),
+                               gamma=torch.zeros_like(candid_est))
+    return state
+
+
+def make_substeps(pa: ProblemArrays, cfg: SDConfig):
+    """The pieces the host feasibility-mode loop calls (resolveInfeasibility,
+    cuts.c:402-449; core/feasibility.py), as the JAX package's
+    ``make_substeps``: a subproblem solve plus updates at the candidate, a
+    master-only solve, and the cut formSDCut forms once feasibility is
+    restored (cuts.c:40-56), which goes through the path's argmax (the CUDA
+    kernel on the plain path) and counts in ``cut_cnt``."""
+    tol = cfg.TOLERANCE
+    path = problem_path(pa)
+
+    def subprob_update(state: SDState) -> SDState:
+        o_idx = state.last_o_idx
+        res, state = warm_solve_subproblem(pa, state, state.candid_x,
+                                           state.omega_vals[o_idx])
+        state = state._replace(
+            lp_cnt=state.lp_cnt + 1,
+            lp_pivots=state.lp_pivots + int(res.iters),
+            sp_feas=bool(res.status == STATUS_OPTIMAL))
+        state, _ = path.updates(pa, state, res, o_idx, False, state.k, tol)
+        return state
+
+    def master_step(state: SDState) -> SDState:
+        return _master(pa, cfg, state, state.k)
+
+    def cut_step(state: SDState) -> SDState:
+        state, _ = _cut(pa, cfg, path, state._replace(cut_ok=True),
+                        state.candid_x, state.k, incumbent=False)
+        return state
+
+    return {"subprob_update": subprob_update, "master_step": master_step,
+            "cut_step": cut_step}
 
 
 def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
@@ -53,25 +157,15 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
     [CHECK_EVERY, B, R] for several steps) injects them instead, so tests
     can feed the port the JAX package's draws.  SUBPROB_F32_PIVOT and
     SUBPROB_STAGED_BATCH are accepted and change nothing: the subproblems
-    are solved in f64, all B lanes in one pass (ops/simplex.lane_cap)."""
-    check_supported(pa, cfg)
+    are solved in f64, all B lanes in one pass (ops/simplex.lane_cap).
+    Under MASTER_TYPE 0/1 the master is the LP and the step forms no
+    incumbent cut and makes no improvement check."""
     tol = cfg.TOLERANCE
     dtype = pa.c1.dtype
     batch = max(1, int(cfg.SAMPLE_INCREMENT))
-    # The ratio window holds one entry per step and spans SCAN_LEN samples.
-    scan_len = cfg.eff_scan_len()
     chunk = max(1, int(cfg.CHECK_EVERY))
-
-    def _cut(state: SDState, x, k: int, incumbent: bool):
-        """SDCut + addCut2Pool on the current pools (cuts.c:40-89)."""
-        parts, state = form_cut(
-            pa, state, x, k,
-            dual_stability=cfg.DUAL_STABILITY,
-            pi_eval_start=cfg.PI_EVAL_START,
-            pi_cycle=cfg.PI_CYCLE,
-            scan_len=scan_len, batch=batch)
-        state = state._replace(cut_cnt=state.cut_cnt + 1)
-        return add_cut(pa, state, parts, k, incumbent=incumbent, tol=tol)
+    lp = lp_master(cfg)
+    path = problem_path(pa)
 
     def _form_sd_cut(state: SDState, x, o_idx: int, new_o: bool, k: int,
                      incumbent: bool):
@@ -83,8 +177,8 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
         state = state._replace(lp_cnt=state.lp_cnt + 1,
                                lp_pivots=state.lp_pivots + int(res.iters),
                                sp_feas=state.sp_feas and sp_feas)
-        state, _ = stochastic_updates(pa, state, res, o_idx, new_o, k, tol)
-        return _cut(state, x, k, incumbent)
+        state, _ = path.updates(pa, state, res, o_idx, new_o, k, tol)
+        return _cut(pa, cfg, path, state, x, k, incumbent)
 
     def _batched_candidate_cut(state: SDState, w_batch, k: int):
         """The B observations of a step: dedup, one lane-batched solve at
@@ -123,9 +217,9 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
             lp_pivots=state.lp_pivots + pivots,
             lane_iters=res_b.iters,
             sp_feas=state.sp_feas and n_ok == B)
-        state = stochastic_updates_batch(pa, state, res_b, o_idxs, new_flags,
-                                         k, tol)
-        return _cut(state, state.candid_x, k, incumbent=False)
+        state = path.updates_batch(pa, state, res_b, o_idxs, new_flags, k,
+                                   tol)
+        return _cut(pa, cfg, path, state, state.candid_x, k, incumbent=False)
 
     def _check_improvement(state: SDState, cand_slot: int, k: int):
         """checkImprovement / replaceIncumbent (soln.c:24-94)."""
@@ -151,7 +245,7 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
                 incumb_x=s.candid_x, incumb_est=candid_est,
                 quad_scalar=torch.where(grow, qs_new, qs),
                 i_cut_idx=cand_slot, i_cut_updt=k, incumb_chg=False,
-                norm_dk_1=s.norm_dk,
+                norm_dk_1=s.norm_dk, infeas_incumb=False,
                 gamma=torch.zeros((), dtype=dtype, device=qs.device))
         # No improvement: strengthen the proximal term (soln.c:50-51), once
         # per master solve, or once per sample under QS_RELAX_PER_SAMPLE.
@@ -180,33 +274,20 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
             state, cand_slot = _batched_candidate_cut(state, w, k)
             do_inc = (k - state.i_cut_updt) >= cfg.TAU
 
-        # 4. incumbent cut every TAU iterations (algo.c:161-166).
-        if do_inc:
-            state, _ = _form_sd_cut(state, state.incumb_x, state.last_o_idx,
-                                    False, k, incumbent=True)
-        # 5. incumbent improvement check (algo.c:169-171).
-        if not state.incumb_chg and k > 1:
-            state = _check_improvement(state, cand_slot, k)
+        # 4. incumbent cut every TAU iterations (algo.c:161-166) and 5. the
+        # incumbent improvement check (algo.c:169-171): QP-master
+        # machinery, absent in LP mode (setup.c:113-119).
+        if not lp:
+            if do_inc:
+                state, _ = _form_sd_cut(state, state.incumb_x,
+                                        state.last_o_idx, False, k,
+                                        incumbent=True)
+            if not state.incumb_chg and k > 1:
+                state = _check_improvement(state, cand_slot, k)
 
-        # 6. master QP (algo.c:174, master.c:18-88).
-        return master_step(state, k)
-
-    def master_step(state: SDState, k: int) -> SDState:
-        res = build_and_solve_master(pa, state, k)
-        candid_est = pa.c1 @ res.x + max_cut_height(pa, state, res.x, k)
-        return state._replace(
-            candid_x=res.x,
-            candid_est=candid_est,
-            gamma=candid_est - state.incumb_est,
-            norm_dk=res.d_norm2,
-            norm_dk_1=res.d_norm2 if k == 1 else state.norm_dk_1,
-            pi_first=res.pi_first,
-            pi_cuts=res.pi_cuts,
-            dj_master=res.dj,
-            eta=res.eta,
-            master_ok=state.master_ok and res.ok,
-            qp_iters=state.qp_iters + res.iters,
-        )
+        # 6. master QP or LP (algo.c:174, master.c:18-88).
+        state = _master(pa, cfg, state, k)
+        return state._replace(norm_dk_1=state.norm_dk) if k == 1 else state
 
     def step(state: SDState, gen: torch.Generator | None = None,
              w_raw=None) -> SDState:

@@ -30,10 +30,11 @@ def pre_test(candid_est: float, incumb_est: float, pre_epsilon: float) -> bool:
     return candid_est > (1.0 + pre_epsilon) * incumb_est
 
 
-def _reform_cuts(pa: ProblemArrays, state: SDState, counts):
+def reform_cuts(pa: ProblemArrays, state: SDState, counts):
     """reformCuts (optimal.c:187-236) for every cut under every row of
     resampled observation counts [R, O]; returns (alpha [R, K],
-    beta [R, K, n1])."""
+    beta [R, K, n1]).  The plain path's; random cost coefficients take
+    core/randcost.py's variant."""
     K, O = state.cut_istar.shape
     n1 = pa.c1.shape[0]
     dtype, dev = pa.c1.dtype, pa.c1.device
@@ -94,10 +95,13 @@ def bootstrap_draws(state: SDState, gen: torch.Generator, reps: int):
     return sample_categorical(gen, w, reps, state.k)
 
 
-def full_test(pa: ProblemArrays, cfg: SDConfig, state: SDState,
-              draws) -> bool:
-    """fullTest (optimal.c:69-133) on given resampling draws [reps, n]
-    (observation indices; the first k of each row are used)."""
+def bootstrap_bounds(pa: ProblemArrays, cfg: SDConfig, state: SDState,
+                     draws, reform=reform_cuts):
+    """The two sides of fullTest's gap (optimal.c:69-133) for each row of
+    resampling draws [reps, n] (the first k of each row are used): the best
+    reformed height at the incumbent and the closed-form lower bound, both
+    [reps]; None when no cut has a positive master dual.  ``reform`` is
+    the path's reformCuts (core/step.py::problem_path)."""
     dtype = pa.c1.dtype
     K, O = state.cut_istar.shape
     kf = float(state.k)
@@ -105,13 +109,13 @@ def full_test(pa: ProblemArrays, cfg: SDConfig, state: SDState,
     # (a) choose good cuts: positive master dual (chooseCuts:139-155).
     good = state.cut_mask & (state.pi_cuts > cfg.TOLERANCE)
     if not bool(torch.any(good)):
-        return False
+        return None
 
     # (b,c) resampled counts per replication.
     d = draws[:, :state.k]
     counts = torch.zeros((d.shape[0], O), dtype=torch.int64, device=d.device)
     counts.scatter_add_(1, d, torch.ones_like(d))
-    alpha, beta = _reform_cuts(pa, state, counts)
+    alpha, beta = reform(pa, state, counts)
 
     # (e) best reformed height at the incumbent (optimal.c:100).
     ns_frac = state.cut_ns.to(dtype) / kf
@@ -119,11 +123,21 @@ def full_test(pa: ProblemArrays, cfg: SDConfig, state: SDState,
     est = torch.amax(torch.where(good, h, _NEG), dim=1)                # [R]
 
     # (f) closed-form lower bound (optimal.c:110).
-    lb_val = _boot_lb(pa, state, good, alpha, beta)
+    return est, _boot_lb(pa, state, good, alpha, beta)
+
+
+def full_test(pa: ProblemArrays, cfg: SDConfig, state: SDState,
+              draws, reform=reform_cuts) -> bool:
+    """fullTest (optimal.c:69-133) on given resampling draws [reps, n]
+    (observation indices; the first k of each row are used)."""
+    bounds = bootstrap_bounds(pa, cfg, state, draws, reform)
+    if bounds is None:
+        return False
+    est, lb_val = bounds
 
     # (g) normalized gap (optimal.c:117).
     ie = state.incumb_est
     denom = torch.where(torch.abs(ie) < 1e-12, 1.0, ie)
     passes = torch.abs((est - lb_val) / denom) <= cfg.EPSILON
-    frac = float(torch.mean(passes.to(dtype)))
+    frac = float(torch.mean(passes.to(pa.c1.dtype)))
     return frac >= cfg.PERCENT_PASS

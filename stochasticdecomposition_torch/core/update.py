@@ -82,6 +82,17 @@ def compute_mu(res: LPResult):
     return torch.sum(torch.where(at_bound, res.dj * res.y, 0.0))
 
 
+def ray_mub(pa: ProblemArrays, farkas):
+    """The Farkas ray's bound correction, -sup_{l<=y<=u} ray'Dy: the
+    feasibility cut's constant absorbs it (the ray analog of computeMU's
+    mubBar).  ``farkas`` [m2] or [B, m2]."""
+    rd = farkas @ pa.D
+    u_fin = torch.where(torch.isfinite(pa.u2), pa.u2, 0.0)
+    l_fin = torch.where(torch.isfinite(pa.l2), pa.l2, 0.0)
+    return -torch.sum(u_fin * torch.clamp(rd, min=0.0) +
+                      l_fin * torch.clamp(rd, max=0.0), dim=-1)
+
+
 def _first_match(close: torch.Tensor, cnt: int):
     """Index of the first True among the first ``cnt`` entries, or None."""
     hits = torch.nonzero(close[:cnt])
@@ -251,7 +262,9 @@ def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None):
 
 def calc_omega_batch(state: SDState, w_batch, tol: float):
     """B observations deduped into the omega pool at once: the same pool
-    contents, weights and slot order as B sequential ``calc_omega`` calls.
+    contents, weights and slot order as B sequential ``calc_omega`` calls
+    (which the JAX package makes on random-cost problems; the outcome is
+    the same on every problem).
     Returns (state, o_idxs, new_flags), both numpy [B]."""
     O = state.omega_vals.shape[0]
     cnt = state.omega_cnt
@@ -281,7 +294,8 @@ def stochastic_updates_batch(pa: ProblemArrays, state: SDState,
     The delta table is a function of (lambda row, omega column) alone, so
     only coverage matters: new lambda rows are filled against the extended
     omega pool, then new omega columns against the extended lambda pool
-    (a (new, new) pair gets the column's value)."""
+    (a (new, new) pair gets the column's value).  Random cost
+    coefficients take core/randcost.py's variant instead."""
     nb = pa.rv_b_rows.shape[0]
     nC = pa.rv_C_rows.shape[0]
     dev = state.lambda_vals.device
@@ -289,11 +303,7 @@ def stochastic_updates_batch(pa: ProblemArrays, state: SDState,
 
     feas = res_b.status == STATUS_OPTIMAL                        # [B]
     pi_b = torch.where(feas[:, None], res_b.pi, res_b.farkas)    # [B, m2]
-    rd = res_b.farkas @ pa.D                                     # [B, n2]
-    u_fin = torch.where(torch.isfinite(pa.u2), pa.u2, 0.0)
-    l_fin = torch.where(torch.isfinite(pa.l2), pa.l2, 0.0)
-    mub_ray = -torch.sum(u_fin[None] * torch.clamp(rd, min=0.0) +
-                         l_fin[None] * torch.clamp(rd, max=0.0), dim=1)
+    mub_ray = ray_mub(pa, res_b.farkas)                          # [B]
     at_bound = (res_b.cstat == AT_LOWER) | (res_b.cstat == AT_UPPER)
     mu_opt = torch.sum(torch.where(at_bound, res_b.dj * res_b.y, 0.0), dim=1)
     mub = torch.where(feas, mu_opt, mub_ray)                     # [B]
@@ -367,13 +377,8 @@ def stochastic_updates_batch(pa: ProblemArrays, state: SDState,
 def stochastic_updates(pa: ProblemArrays, state: SDState, res: LPResult,
                        o_idx: int, new_o: bool, k: int, tol: float):
     """Full update pass for one subproblem dual (stochasticUpdates,
-    stocUpdate.c:14-133) on the plain-randomness path.
-    Returns (state, sigma_idx)."""
-    if int(pa.rv_d_cols.shape[0]) > 0:
-        raise NotImplementedError(
-            "random cost coefficients (the v2.0 basis machinery) are not "
-            "ported yet")
-
+    stocUpdate.c:14-133) on the plain path; random cost coefficients take
+    core/randcost.py's variant instead.  Returns (state, sigma_idx)."""
     # New observation -> new delta column against all lambdas (must run before
     # the new lambda row fill, mirroring stocUpdate.c:24-31).
     if new_o and o_idx < state.delta_pib.shape[1]:
@@ -383,17 +388,15 @@ def stochastic_updates(pa: ProblemArrays, state: SDState, res: LPResult,
     # For infeasible subproblems the dual ray (Farkas certificate) enters the
     # pools with feasFlag=false (stocUpdate.c:66-75).
     if feas:
-        pi, mub = res.pi, compute_mu(res)
-    else:
-        # Ray bound correction: the feasibility cut's constant absorbs
-        # -sup_{l<=y<=u} ray'Dy (the ray analog of computeMU's mubBar).
-        pi = res.farkas
-        rd = res.farkas @ pa.D
-        u_fin = torch.where(torch.isfinite(pa.u2), pa.u2, 0.0)
-        l_fin = torch.where(torch.isfinite(pa.l2), pa.l2, 0.0)
-        mub = -torch.sum(u_fin * torch.clamp(rd, min=0.0) +
-                         l_fin * torch.clamp(rd, max=0.0))
+        return pool_dual(pa, state, res.pi, compute_mu(res), True, k, tol)
+    return pool_dual(pa, state, res.farkas, ray_mub(pa, res.farkas), False,
+                     k, tol)
 
+
+def pool_dual(pa: ProblemArrays, state: SDState, pi, mub, feas: bool, k: int,
+              tol: float):
+    """Dedup a dual vertex (or ray, ``feas`` False) into the lambda and
+    sigma pools (calcLambda + calcSigma).  Returns (state, sigma_idx)."""
     state, lidx, new_lam = calc_lambda(pa, state, pi, tol)
     state, sidx, _ = calc_sigma(pa, state, pi, mub, lidx, new_lam, feas, k,
                                 tol)

@@ -4,8 +4,9 @@
 — as a test builds it from another implementation's containers with
 ``np.asarray`` — and return the port's ``ProblemArrays`` / ``SDState`` on a
 device, so two implementations can start from the same state at any step.
-Fields the port does not carry (the random-cost basis pool, the PRNG key,
-feasibility-mode bookkeeping) are ignored; a missing field raises.
+Fields the port does not carry (the PRNG key, the feasibility cut count,
+which the port reads off ``fcut_mask``) are ignored; a missing field
+raises.
 """
 
 from __future__ import annotations
@@ -19,15 +20,18 @@ _INT_FIELDS = {
     "sense1", "sense2", "rv_b_rows", "rv_C_rows", "rv_C_cols", "rv_d_cols",
     "lambda_rows", "C_cols", "lam_pos_C", "C_cols_rand", "omega_w",
     "sigma_lidx", "sigma_ck", "cut_ns", "cut_omega_cnt", "cut_istar",
-    "warm_basis",
+    "warm_basis", "basis_sigma0", "basis_sigma_idx", "basis_ck",
 }
-_BOOL_TENSORS = {"sigma_feas", "cut_mask", "fcut_mask", "warm_atup"}
+_INT8_FIELDS = {"basis_cstat", "basis_rstat"}
+_BOOL_TENSORS = {"sigma_feas", "cut_mask", "fcut_mask", "warm_atup", "int1",
+                 "basis_present", "basis_feas", "obs_feas"}
 _PY_INTS = {"k", "lp_cnt", "lp_pivots", "qp_iters", "omega_cnt",
             "lambda_cnt", "sigma_cnt", "i_cut_idx", "i_cut_updt",
-            "ratio_cnt", "last_o_idx", "cut_cnt"}
+            "ratio_cnt", "last_o_idx", "cut_cnt", "basis_cnt", "feas_cnt"}
 _PY_BOOLS = {"incumb_chg", "dual_stable", "sp_feas", "master_ok", "cut_ok",
-             "lb_nontrivial"}
+             "lb_nontrivial", "opt_mode", "infeas_incumb"}
 _PY_FLOATS = {"lb"}
+_PY_INT_PAIRS = {"f_updt"}
 
 
 def _convert(name, value, device, dtype):
@@ -37,9 +41,13 @@ def _convert(name, value, device, dtype):
         return bool(np.asarray(value))
     if name in _PY_FLOATS:
         return float(np.asarray(value))
+    if name in _PY_INT_PAIRS:
+        return tuple(int(v) for v in np.asarray(value))
     a = np.array(value)            # a writable copy: pools are updated in place
     if name in _INT_FIELDS:
         return torch.as_tensor(a.astype(np.int64), device=device)
+    if name in _INT8_FIELDS:
+        return torch.as_tensor(a.astype(np.int8), device=device)
     if name in _BOOL_TENSORS:
         return torch.as_tensor(a.astype(bool), device=device)
     return torch.as_tensor(a.astype(np.float64), dtype=dtype, device=device)

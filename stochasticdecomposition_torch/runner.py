@@ -6,9 +6,12 @@ CHECK_EVERY steps between two host gates) until the statistical stop
 (pre-test, then the bootstrap full test, optimal.c) or MAX_ITER samples,
 then the out-of-sample evaluation of the incumbent when EVAL_FLAG is set.
 A replication draws from its own ``torch.Generator`` pair seeded from
-RUN_SEED, the evaluation from one seeded from EVAL_SEED.  Several
-replications with the compromise problem, checkpoints, metrics files and
-meshes are not ported yet (ROADMAP A15-A17).
+RUN_SEED, the evaluation from one seeded from EVAL_SEED.  An infeasible
+subproblem sends the replication into feasibility mode
+(core/feasibility.py); under MASTER_TYPE 1/7 a branch-and-bound over the
+master's relaxations (core/bnb.py) makes every candidate integral.  Several
+replications with the compromise problem, the CLI, checkpoints, metrics
+files and meshes are not ported yet (ROADMAP A15-A17).
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from stochasticdecomposition_torch.config import SDConfig
+from stochasticdecomposition_torch.config import (
+    MASTER_MILP, MASTER_MIQP, SDConfig,
+)
+from stochasticdecomposition_torch.core.bnb import make_mip_master
+from stochasticdecomposition_torch.core.cuts import max_cut_height
 from stochasticdecomposition_torch.core.evaluate import (
     EvalResult, eval_generator, evaluate, make_eval_batch,
 )
@@ -29,7 +36,12 @@ from stochasticdecomposition_torch.core.state import (
     Capacities, derive_capacities, estimate_pool_bytes, init_state,
     stage_problem,
 )
-from stochasticdecomposition_torch.core.step import make_step
+from stochasticdecomposition_torch.core.feasibility import (
+    resolve_infeasibility,
+)
+from stochasticdecomposition_torch.core.step import (
+    lp_master, make_step, make_substeps, problem_path,
+)
 from stochasticdecomposition_torch.core.stopping import (
     bootstrap_draws, full_test, pre_test,
 )
@@ -79,7 +91,8 @@ class ReplicationResult:
     lp_pivots: int = 0          # simplex pivots over all subproblem solves
     qp_iters: int = 0           # interior-point iterations over all masters
     master_failures: int = 0    # uncertified master solves (run continued)
-    cuts_formed: int = 0        # SD cuts formed (triple argmax calls)
+    cuts_formed: int = 0        # SD cuts formed (argmax calls)
+    feas_rounds: int = 0        # feasibility-mode rounds
     eval: Optional[EvalResult] = None
 
 
@@ -151,6 +164,17 @@ class SDSolver:
         self.pa = stage_problem(sp, self.device, dtype)
         self.spec = build_sampler(stoc, sp.rv_order, self.device)
         self.step = make_step(self.pa, self.spec, cfg)
+        self.substeps = make_substeps(self.pa, cfg)
+        self.reform = problem_path(self.pa).reform
+        # MILP/MIQP master (MASTER_TYPE 1/7) on an integer first stage: the
+        # step solves the continuous relaxation (its duals feed the cut
+        # eviction and the bootstrap), then the branch-and-bound makes the
+        # candidate integral (master.c:41 semantics).  Without integer
+        # columns the master is the plain LP or QP.
+        self.mip_master = None
+        if cfg.MASTER_TYPE in (MASTER_MILP, MASTER_MIQP) and \
+                bool(torch.any(self.pa.int1)):
+            self.mip_master = make_mip_master(self.pa, cfg)
         self.caps = derive_capacities(sp, cfg)
         self.pool_bytes = estimate_pool_bytes(sp, self.caps, cfg)
         self.mean_sol = mean_value_solution(sp, self.device, dtype)
@@ -168,6 +192,11 @@ class SDSolver:
         state = init_state(self.pa, self.caps, cfg, self.mean_sol)
         t_setup = time.monotonic() - t0
 
+        # LP and MILP masters have no bootstrap lower bound (fullTest aborts
+        # at optimal.c:104-108): they run to MAX_ITER.  MIQP keeps the
+        # statistical stop on its relaxation's duals.
+        stat_stop = not lp_master(cfg)
+        pool_alpha, pool_beta = [], []      # the feasibility cut pool
         optimal = False
         n_full_tests = 0
         master_fails = 0
@@ -176,12 +205,12 @@ class SDSolver:
             k = state.k
             # Optimality gate (optimal.c:23-42): min iterations + stable duals
             # + pre-test, then the bootstrap full test.
-            if k > cfg.MIN_ITER and state.dual_stable and pre_test(
-                    float(state.candid_est), float(state.incumb_est),
-                    cfg.PRE_EPSILON):
+            if stat_stop and k > cfg.MIN_ITER and state.dual_stable and \
+                    pre_test(float(state.candid_est),
+                             float(state.incumb_est), cfg.PRE_EPSILON):
                 n_full_tests += 1
                 draws = bootstrap_draws(state, boot_gen, cfg.BOOTSTRAP_REP)
-                if full_test(self.pa, cfg, state, draws):
+                if full_test(self.pa, cfg, state, draws, self.reform):
                     optimal = True
                     log(">")
                     break
@@ -190,11 +219,11 @@ class SDSolver:
             if metrics is not None:
                 metrics.record(state)
             if not state.sp_feas:
-                raise NotImplementedError(
-                    f"an infeasible subproblem at k={state.k} needs "
-                    "feasibility mode (resolveInfeasibility), which is not "
-                    "ported yet")
-            if not state.cut_ok:
+                # Feasibility mode (resolveInfeasibility, cuts.c:402-449).
+                log("F")
+                state, pool_alpha, pool_beta = resolve_infeasibility(
+                    self.pa, state, cfg, self.substeps, pool_alpha, pool_beta)
+            if not state.cut_ok and state.sp_feas:
                 # istar < 0: the hard error of the reference (cuts.c:136-139).
                 raise RuntimeError(
                     f"SD cut formation failed at k={state.k}: no valid "
@@ -213,8 +242,20 @@ class SDSolver:
                 state = state._replace(master_ok=True)
             else:
                 master_fails = 0
+            if self.mip_master is not None:
+                state = self._mip_commit(state, log)
             if k % 100 == 0:
                 log(f"\nIteration-{k:4d}: ")
+
+        if self.mip_master is not None:
+            # The incumbent starts at the (possibly fractional) mean-value
+            # solution; if no integral candidate ever replaced it, report
+            # the last integral candidate.
+            ii = torch.nonzero(self.pa.int1)[:, 0]
+            xi = state.incumb_x[ii]
+            if float(torch.amax(torch.abs(xi - torch.round(xi)))) > 1e-6:
+                state = state._replace(incumb_x=state.candid_x.clone(),
+                                       incumb_est=state.candid_est.clone())
 
         check_pool_overflow(state.omega_cnt, state.lambda_cnt,
                             state.sigma_cnt, self.caps, rep)
@@ -238,7 +279,37 @@ class SDSolver:
             qp_iters=state.qp_iters,
             master_failures=master_failures,
             cuts_formed=state.cut_cnt,
+            feas_rounds=state.feas_cnt,
         )
+
+    def _mip_commit(self, state, log):
+        """The integer master (MASTER_TYPE 1/7): the branch-and-bound over
+        the master's relaxations replaces the candidate with the integral
+        optimum of the same master; the relaxation's duals stay in the
+        state.  MILP, in LP mode, reports the candidate as the solution."""
+        pa = self.pa
+        res = self.mip_master(state)
+        if not res.found:
+            if res.uncertified:
+                raise RuntimeError(
+                    f"B&B master: node relaxations failed to certify at "
+                    f"k={state.k} ({res.uncertified} of {res.nodes} nodes "
+                    "uncertified after retry)")
+            raise RuntimeError(
+                f"B&B master found no integer-feasible point at k={state.k} "
+                f"({res.nodes} nodes explored)")
+        if res.truncated:
+            log(f"\n[warn] B&B master hit its node limit at k={state.k} "
+                f"({res.nodes} nodes); integral candidate may be "
+                "suboptimal\n")
+        x = torch.as_tensor(res.x, dtype=pa.c1.dtype, device=pa.c1.device)
+        est = pa.c1 @ x + max_cut_height(pa, state, x, state.k)
+        state = state._replace(candid_x=x, candid_est=est,
+                               gamma=est - state.incumb_est)
+        if lp_master(self.cfg):
+            state = state._replace(incumb_x=x.clone(), incumb_est=est.clone(),
+                                   gamma=torch.zeros_like(est))
+        return state
 
     def evaluate_x(self, x, rep: int = 0, **kw) -> EvalResult:
         """Out-of-sample estimate of c'x + E[h(x, omega)] on draws from

@@ -251,18 +251,21 @@ def test_lane_passes_match_one_pass(monkeypatch):
 
 
 def test_unported_configurations_raise():
+    """Several replications and the compromise problem (ROADMAP A15) are
+    what the port still refuses; the LP/MILP/MIQP masters and random costs
+    build."""
     from stochasticdecomposition_torch.config import MASTER_LP
+    from stochasticdecomposition_torch.runner import SDSolver
 
     pa = stage_problem(port_problem("lands"), CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_step(pa, None, SDConfig(MASTER_TYPE=MASTER_LP, EVAL_FLAG=False))
-    fields = {f: np.asarray(v) if isinstance(v, torch.Tensor) else v
-              for f, v in pa._asdict().items()}
-    fields["rv_d_cols"] = np.array([0])
-    from stochasticdecomposition_torch.interop import problem_from_numpy
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_step(problem_from_numpy(fields), None,
-                  SDConfig(EVAL_FLAG=False))
+    make_step(pa, None, SDConfig(MASTER_TYPE=MASTER_LP, EVAL_FLAG=False))
+    for kw in (dict(MULTIPLE_REP=2),
+               dict(MULTIPLE_REP=2, COMPROMISE_PROB=True)):
+        solver = SDSolver(port_problem("lands"),
+                          SDConfig(MAX_ITER=16, EVAL_FLAG=False, **kw),
+                          device="cpu")
+        with pytest.raises(NotImplementedError, match="A15"):
+            solver.run()
 
 
 def test_batched_replication_stops_and_flags_overflow():

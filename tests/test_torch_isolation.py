@@ -31,6 +31,16 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def test_every_module_is_checked():
+    """The check walks the whole package: the feasibility, random-cost and
+    branch-and-bound modules are among the files it reads."""
+    checked = {str(p.relative_to(PORT)) for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("core/feasibility.py", "core/randcost.py", "core/bnb.py",
+                "core/master.py", "core/step.py", "runner.py"):
+        assert mod in checked, mod
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):

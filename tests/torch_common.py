@@ -50,10 +50,19 @@ RANDC = {
 }
 
 
+# Instances with random cost coefficients (the v2.0 path), as the JAX
+# package's tests/test_randcost.py builds them: two cost RVs, and one cost
+# RV beside two RHS RVs.
+RANDD = {
+    "randd_s21": dict(seed=21, n_rv=1, support=2, rand_d=2, n2=6, m2=4),
+    "randd_s33": dict(seed=33, n_rv=2, support=2, rand_d=1, n2=5, m2=4),
+}
+
+
 def _parsed(name, port):
-    if name in RANDC:
+    if name in RANDC or name in RANDD:
         return (parse_synthetic if port else jax_parse_synthetic)(
-            **RANDC[name])
+            **RANDC.get(name, RANDD.get(name)))
     return (load_instance if port else jax_load_instance)(name)
 
 
