@@ -26,8 +26,15 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 torch.profiler's device time of the kernel.
   3. lands    — batch-1 SD at the default SDConfig (MAX_ITER=5000 pool
                 capacities, no evaluation) to the certified stop; exact gap
-                of the incumbent against the extensive-form optimum.
-  4. pgp2like — the same.
+                of the incumbent against the extensive-form optimum.  With
+                a checkpoint every CKPT_EVERY samples (in a temporary
+                directory); then the replication resumed from the last
+                checkpoint must return the same iterations, incumbent (bit
+                for bit), estimate, pools and cuts (``resume_identical``),
+                launching the kernel once per cut formed after it.
+                The checkpoints' write time and bytes are reported apart
+                (``checkpoint_seconds``, ``sd_seconds_without_checkpoints``).
+  4. pgp2like — the same, without checkpoints.
   5. stormlike — default capacities, a fixed 12 iterations: every LP
                 optimal, every cut and master solve certified.
   6. randc    — random technology coefficients (parse_synthetic with
@@ -41,7 +48,12 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 reach; exact gap.
   8. stormlike_b8 — 6 steps at SAMPLE_INCREMENT 8 at full width: seconds
                 per step, LPs/s, pivots per LP and per lane (max, median);
-                every master certified.
+                every master certified.  Then a second replication
+                (RUN_SEED[1]) of the same steps and the compromise of the
+                two (n1 = 121, 59 first-stage rows): the batch QP must
+                certify on the card, and the compromise decision meet the
+                first-stage rows and bounds within COMPROMISE_VIOLATION;
+                its IPM iterations and seconds.
   9. eval     — the upper-bound estimates of phase 7's runs (within 1 % of
                 the incumbent's exact objective) and a fixed 2 x 512 lanes
                 on the stormlike_b8 incumbent: UB, CI, count, dropped
@@ -69,24 +81,41 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 statistical stop, and the evaluated UB within 2 % of the
                 extensive-form optimum.
  14. intcaplike_miqp — the MIQP master (MASTER_TYPE 7), MAX_ITER 120,
-                MIN_ITER 40: the incumbent is integral and its exact cost
-                within 1 % of the integer optimum found by enumerating the
-                integer grid; branch-and-bound nodes and waves per
-                iteration.
+                MIN_ITER 40, two replications and the integer compromise
+                through ``SDSolver.run``: each incumbent and the compromise
+                are integral and their exact costs within 1 % of the
+                integer optimum found by enumerating the integer grid;
+                branch-and-bound nodes and waves per iteration, the
+                compromise's nodes and IPM iterations.
+ 15. cli_pgp2like_m3 — ``cli.main(["-p", "pgp2like", "-m", "3", "-c", "1",
+                "-e", "1", "--metrics-every", "10", "--time-phases", ...])``
+                in process at the default capacities: three certified stops
+                within the exact-gap limit, the compromise within it too,
+                the compromise's and the average's UBs within 1 % of their
+                exact objectives, the result files (phase columns >= 0, the
+                compromise and average sections, three metrics streams);
+                launches = cuts formed + (1 + SAMPLES) per replication for
+                the phase-time estimate's ``cut_step`` calls.
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
 drives the path and requires, just after, as many launches as cuts formed
-(none on the random-cost phases); it then times the kernel on the height
-table of its final state (the n_sel its pools reached) and holds it there
-against the plain version.
+(none on the random-cost phases); phases 3-14 then time the kernel on the
+height table of their final state (the n_sel its pools reached) and hold
+it there against the plain version.  Peak device memory is reported per
+phase.
 
 Then a line with the card as nvidia-smi gives it, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import glob
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -107,6 +136,9 @@ INSTANCES = ("lands", "pgp2like", "feastest", "intcaplike")
 DEFAULT_CAPS = dict(MAX_OMEGA=5001, MAX_LAMBDA=7501, MAX_SIGMA=7501,
                     MAX_BASES=7501)
 FEAS_ITERS = 300
+CKPT_EVERY = 100                 # lands: checkpoint cadence (samples)
+COMPROMISE_VIOLATION = 1e-6      # rows and bounds at the compromise
+CLI_REPS = 3
 BAA_ITERS = 300
 LP_ITERS = 150
 LP_UB_LIMIT = 0.02               # LP-master UB against the optimum
@@ -186,6 +218,64 @@ def same(g, w) -> bool:
     """Exact equality, NaN matching NaN."""
     return g.dtype == w.dtype and g.shape == w.shape and bool(
         torch.all((g == w) | (torch.isnan(g) & torch.isnan(w))))
+
+
+@contextlib.contextmanager
+def swapped(obj, attr, value):
+    """``obj.attr`` is ``value`` inside the block (instrumentation of an
+    entry point's internals); restored after it."""
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, old)
+
+
+def timed(fn, seconds):
+    """``fn`` appending each call's seconds (card synchronised) to
+    ``seconds``."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.monotonic() - t)
+        return out
+
+    return call
+
+
+def recording_qp(stats):
+    """``ops/qp.solve_qp`` as the compromise module calls it, recording each
+    solve's IPM iterations, seconds (card synchronised), size and
+    certification in ``stats``."""
+    from stochasticdecomposition_torch.core import compromise
+
+    solve_qp = compromise.solve_qp
+
+    def solve(Q, c, A, b, G, h, **kw):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        res = solve_qp(Q, c, A, b, G, h, **kw)
+        converged = bool(res.converged)
+        stats.append({"ipm_iters": int(res.iters),
+                      "seconds": time.monotonic() - t,
+                      "converged": converged, "variables": Q.shape[0],
+                      "eq_rows": A.shape[0], "ineq_rows": G.shape[0]})
+        return res
+
+    return swapped(compromise, "solve_qp", solve)
+
+
+def first_stage_violation(pa, x) -> float:
+    """The largest violation at x of A1 x {<=,=,>=} b1 and of l1 <= x <= u1."""
+    A, b, sense, lo, hi = (t.cpu().numpy() for t in
+                           (pa.A1, pa.b1, pa.sense1, pa.l1, pa.u1))
+    r = A @ x - b
+    rows = np.where(sense == 0, np.abs(r), np.where(sense > 0, -r, r))
+    return float(max(np.max(rows, initial=0.0), np.max(lo - x),
+                     np.max(x - hi), 0.0))
 
 
 def bound_ms(masks, O) -> tuple:
@@ -285,15 +375,17 @@ def load_problem(name):
     return attach_stoc(decompose(core, tim, stoc), stoc)
 
 
-def run_sd(name, dev, cfg, lanes=False, evaluate=False, bnb=False):
-    """One replication through SDSolver, the user's entry point (``run``,
-    with its evaluation, when ``evaluate``); returns (solver, result,
-    kernel launches during the run, recorder).  The kernel is launched
-    once per cut formed, except on random-cost problems, whose cut takes
-    the random-cost argmax.  ``bnb`` counts the branch-and-bound master's
-    nodes and waves in ``rec.bnb``."""
+def run_sd(name, dev, cfg, lanes=False, via_run=False, bnb=False, **kw):
+    """Replications through SDSolver, the user's entry point: ``run`` (all
+    MULTIPLE_REP replications, their evaluations and the compromise) when
+    ``via_run``, else ``solve_replication(0, **kw)``; returns (solver, the
+    first replication's result, kernel launches during the run, recorder,
+    with the RunResult in ``rec.run``).  The kernel is launched once per cut
+    formed, except on random-cost problems, whose cut takes the random-cost
+    argmax.  ``bnb`` counts the branch-and-bound master's nodes and waves
+    in ``rec.bnb``."""
     from stochasticdecomposition_torch.ops import argmax
-    from stochasticdecomposition_torch.runner import SDSolver
+    from stochasticdecomposition_torch.runner import RunResult, SDSolver
 
     solver = SDSolver(load_problem(name), cfg, device=dev)
     rec = Recorder(lanes)
@@ -310,20 +402,21 @@ def run_sd(name, dev, cfg, lanes=False, evaluate=False, bnb=False):
 
         solver.mip_master = counted
     argmax.launches = 0
-    if evaluate:
-        t = time.monotonic()
-        res = solver.run(metrics=rec).replications[0]
-        torch.cuda.synchronize()
-        rec.eval_seconds = time.monotonic() - t - res.time_total
+    t = time.monotonic()
+    if via_run:
+        rec.run = solver.run(metrics=rec)
     else:
-        res = solver.solve_replication(0, metrics=rec)
+        rec.run = RunResult(solver.sp.name,
+                            [solver.solve_replication(0, metrics=rec, **kw)])
     torch.cuda.synchronize()
+    reps = rec.run.replications
+    rec.eval_seconds = time.monotonic() - t - sum(r.time_total for r in reps)
     launches = argmax.launches
-    expected = 0 if solver.pa.rv_d_cols.shape[0] else res.cuts_formed
+    cuts = sum(r.cuts_formed for r in reps)
+    expected = 0 if solver.pa.rv_d_cols.shape[0] else cuts
     if launches != expected:
-        fail(f"{name}: {launches} kernel launches for {res.cuts_formed} "
-             "cuts formed")
-    return solver, res, launches, rec
+        fail(f"{name}: {launches} kernel launches for {cuts} cuts formed")
+    return solver, reps[0], launches, rec
 
 
 def kernel_at_stop(solver, state, flush):
@@ -356,6 +449,47 @@ def kernel_at_stop(solver, state, flush):
             "plain_ms": plain, "bound_ms": b_ms, "bytes": nbytes}
 
 
+def resume_check(solver, whole, ckdir):
+    """Resume from the last checkpoint of ``whole``'s run: the resumed
+    replication must return ``whole``'s iterations, incumbent (bit-equal),
+    estimate, pools and cuts; it launches the kernel once per cut formed
+    after the checkpoint.  Returns (JSON fields, launches)."""
+    from stochasticdecomposition_torch.core.state import init_state
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.utils.checkpoint import load_state
+
+    ckpts = sorted(glob.glob(os.path.join(ckdir, "rep00_k*.npz")))
+    if not ckpts:
+        fail("lands: no checkpoint was written")
+    path = ckpts[-1]
+    at = load_state(path, init_state(solver.pa, solver.caps, solver.cfg,
+                                     solver.mean_sol))
+    k_at, cuts_at = at.k, at.cut_cnt
+    del at
+    argmax.launches = 0
+    t = time.monotonic()
+    res = solver.solve_replication(0, resume_from=path)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t
+    launches = argmax.launches
+    same = (res.iterations == whole.iterations and res.optimal == whole.optimal
+            and np.array_equal(res.incumb_x, whole.incumb_x)
+            and res.incumb_est == whole.incumb_est
+            and res.pool_sizes == whole.pool_sizes
+            and res.cuts_formed == whole.cuts_formed)
+    out = {"checkpoints": len(ckpts), "resumed_from_k": k_at,
+           "resume_identical": same, "resumed_seconds": seconds,
+           "resumed_iterations": res.iterations - k_at,
+           "resume_launches": launches}
+    if not same:
+        fail(f"lands: the resumed replication differs ({out}; "
+             f"{res} != {whole})")
+    if launches != whole.cuts_formed - cuts_at:
+        fail(f"lands: {launches} kernel launches after the resume for "
+             f"{whole.cuts_formed - cuts_at} cuts formed")
+    return out, launches
+
+
 def exact_check(solver, name, x):
     """(exact objective at x, the optimum, exact gap) by enumeration of the
     finite support."""
@@ -370,14 +504,14 @@ def exact_check(solver, name, x):
     return exact, opt, abs(exact - opt) / abs(opt)
 
 
-def run_fields(name, dev, cfg, evaluate=False, bnb=False, exact=True):
+def run_fields(name, dev, cfg, via_run=False, bnb=False, exact=True, **kw):
     """A replication and the JSON fields every SD phase reports, with the
     incumbent's exact objective and gap when ``exact`` (finite support);
     returns (fields, solver, result, recorder)."""
     start = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    solver, res, launches, rec = run_sd(name, dev, cfg, evaluate=evaluate,
-                                        bnb=bnb)
+    solver, res, launches, rec = run_sd(name, dev, cfg, via_run=via_run,
+                                        bnb=bnb, **kw)
     peak = torch.cuda.max_memory_allocated(dev)
     batch = cfg.SAMPLE_INCREMENT
     out = {"sample_increment": batch, "stop_iteration": res.iterations,
@@ -385,7 +519,8 @@ def run_fields(name, dev, cfg, evaluate=False, bnb=False, exact=True):
            "sd_seconds": res.time_total,
            "seconds_per_iteration": res.time_total / max(res.iterations, 1),
            "launches": launches,
-           "cuts_formed": res.cuts_formed, "lps": res.lp_count,
+           "cuts_formed": sum(r.cuts_formed for r in rec.run.replications),
+           "lps": res.lp_count,
            "incumb_est": res.incumb_est, "incumb_x": res.incumb_x.tolist(),
            "pools": res.pool_sizes,
            "caps": solver.caps._asdict(), "full_tests": res.full_tests,
@@ -410,9 +545,9 @@ def check_gap(name, out):
              f"({out})")
 
 
-def phase_to_stop(name, dev, cfg, flush, evaluate=False):
+def phase_to_stop(name, dev, cfg, flush, via_run=False, **kw):
     """SD to the certified stop; returns (JSON fields, solver, result)."""
-    out, solver, res, rec = run_fields(name, dev, cfg, evaluate=evaluate)
+    out, solver, res, rec = run_fields(name, dev, cfg, via_run=via_run, **kw)
     check_gap(name, out)
     if not res.optimal:
         fail(f"{name}: no certified stop before MAX_ITER ({out})")
@@ -569,7 +704,7 @@ def phase_lands_lp(dev, flush):
 
     cfg = SDConfig(EVAL_FLAG=True, MASTER_TYPE=MASTER_LP, MAX_ITER=LP_ITERS,
                    **DEFAULT_CAPS)
-    out, solver, res, rec = run_fields("lands", dev, cfg, evaluate=True)
+    out, solver, res, rec = run_fields("lands", dev, cfg, via_run=True)
     ev = res.eval
     out["eval"] = eval_fields(solver, ev, rec.eval_seconds)
     out["ub_vs_optimum"] = (ev.mean - out["optimum"]) / abs(out["optimum"])
@@ -610,29 +745,151 @@ def integer_optimum(solver):
 
 
 def phase_intcap_miqp(dev, flush):
-    """The MIQP master with the branch-and-bound on intcaplike."""
+    """The MIQP master with the branch-and-bound on intcaplike, two
+    replications and the integer compromise through ``SDSolver.run``."""
     from stochasticdecomposition_torch.config import MASTER_MIQP, SDConfig
 
     cfg = SDConfig(EVAL_FLAG=False, MASTER_TYPE=MASTER_MIQP, MAX_ITER=120,
-                   MIN_ITER=40, **DEFAULT_CAPS)
-    out, solver, res, rec = run_fields("intcaplike", dev, cfg, bnb=True,
-                                       exact=False)
+                   MIN_ITER=40, MULTIPLE_REP=2, COMPROMISE_PROB=True,
+                   **DEFAULT_CAPS)
+    qp = []
+    with recording_qp(qp):
+        out, solver, res, rec = run_fields("intcaplike", dev, cfg, bnb=True,
+                                           exact=False, via_run=True)
     (opt, x_opt), cost = integer_optimum(solver)
-    xi = res.incumb_x
-    got = cost(np.round(xi))
+    run = rec.run
+    iterations = sum(r.iterations for r in run.replications)
     out.update(integer_optimum=opt, integer_optimum_x=list(x_opt),
-               incumbent_cost=got, integer_gap=(got - opt) / abs(opt),
                bnb=rec.bnb,
-               bnb_nodes_per_iteration=rec.bnb["nodes"] / res.iterations,
-               bnb_waves_per_iteration=rec.bnb["waves"] / res.iterations)
-    if not np.allclose(xi, np.round(xi), atol=1e-6):
-        fail(f"intcaplike_miqp: incumbent {xi} is not integral")
-    if out["integer_gap"] > MIQP_LIMIT:
-        fail(f"intcaplike_miqp: incumbent cost {got} is off the integer "
-             f"optimum {opt} ({out})")
-    if out["launches"] <= 0 or rec.bnb["calls"] != res.iterations:
+               bnb_nodes_per_iteration=rec.bnb["nodes"] / iterations,
+               bnb_waves_per_iteration=rec.bnb["waves"] / iterations)
+    points = [(f"replication {r.rep}", r.incumb_x) for r in run.replications]
+    points.append(("compromise", run.compromise_x))
+    out["replications"] = [{"iterations": r.iterations,
+                            "sd_seconds": r.time_total,
+                            "cuts_formed": r.cuts_formed,
+                            "incumb_x": r.incumb_x.tolist()}
+                           for r in run.replications]
+    out["integer_gaps"] = {}
+    for what, x in points:
+        got = cost(np.round(x))
+        out["integer_gaps"][what] = (got - opt) / abs(opt)
+        if not np.allclose(x, np.round(x), atol=1e-6):
+            fail(f"intcaplike_miqp: {what} {x} is not integral")
+        if out["integer_gaps"][what] > MIQP_LIMIT:
+            fail(f"intcaplike_miqp: {what} cost {got} is off the integer "
+                 f"optimum {opt} ({out})")
+    out["compromise_x"] = run.compromise_x.tolist()
+    out["compromise_nodes"] = len(qp)
+    out["compromise_seconds"] = sum(q["seconds"] for q in qp)
+    out["compromise_ipm_iters"] = [q["ipm_iters"] for q in qp]
+    if out["launches"] <= 0 or rec.bnb["calls"] != iterations:
         fail(f"intcaplike_miqp: {out}")
     out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out
+
+
+def phase_cli(dev):
+    """The CLI in process: pgp2like, CLI_REPS replications to the certified
+    stop with the evaluation, the compromise and the average decisions, the
+    metrics stream and phase times, at the default capacities.  The
+    kernel is launched once per cut formed, plus (1 + SAMPLES) times per
+    replication by the phase-time estimate's ``cut_step`` calls."""
+    from stochasticdecomposition_torch import cli, runner
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.utils.metrics import SAMPLES
+
+    seen = {}
+    run = runner.SDSolver.run
+
+    def kept_run(self, *a, **kw):
+        seen["solver"] = self
+        seen["run"] = run(self, *a, **kw)
+        return seen["run"]
+
+    estimate = runner.estimate_phase_times
+    phase_launches = []
+
+    def counted_estimate(*a, **kw):
+        before = argmax.launches
+        times = estimate(*a, **kw)
+        phase_launches.append(argmax.launches - before)
+        return times
+
+    qp = []
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            swapped(runner.SDSolver, "run", kept_run), \
+            swapped(runner, "estimate_phase_times", counted_estimate), \
+            recording_qp(qp), contextlib.redirect_stdout(text):
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        argmax.launches = 0
+        t = time.monotonic()
+        rc = cli.main(["-p", "pgp2like", "-m", str(CLI_REPS), "-c", "1",
+                       "-e", "1", "-o", tmp, "--metrics-every", "10",
+                       "--time-phases"])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t
+        launches = argmax.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        out_dir = os.path.join(tmp, "twoSD_torch", "pgp2like")
+        files = sorted(os.listdir(out_dir))
+        rows = open(os.path.join(out_dir, "detailedResults.csv")).read() \
+            .splitlines()[1:]
+        summary = open(os.path.join(out_dir, "summary.dat")).read()
+        metric_lines = [sum(1 for _ in open(os.path.join(
+            out_dir, f"metrics_rep{r:02d}.jsonl"))) for r in range(CLI_REPS)]
+    solver, result = seen["solver"], seen["run"]
+    reps = result.replications
+    out = {"rc": rc, "cli_seconds": seconds, "files": files,
+           "launches": launches,
+           "cuts_formed": sum(r.cuts_formed for r in reps),
+           "phase_time_launches": sum(phase_launches),
+           "peak_allocated_bytes": peak,
+           "peak_above_start_bytes": peak - start,
+           "metrics_lines": metric_lines, "replications": []}
+    for r in reps:
+        exact, _, gap = exact_check(solver, "pgp2like", r.incumb_x)
+        out["replications"].append({
+            "iterations": r.iterations, "certified": r.optimal,
+            "sd_seconds": r.time_total, "exact_gap": gap,
+            "ub": r.eval.mean, "ub_vs_exact": abs(r.eval.mean - exact) /
+            abs(exact), "launches_for_cuts": r.cuts_formed,
+            "phase_times": [r.time_master, r.time_subprob, r.time_opttest,
+                            r.time_argmax]})
+        if not r.optimal or gap > GAP_LIMIT:
+            fail(f"cli_pgp2like_m3: replication {r.rep} "
+                 f"{out['replications'][-1]}")
+    for what, x, ev in (("compromise", result.compromise_x,
+                         result.compromise_eval),
+                        ("average", result.average_x, result.average_eval)):
+        exact, _, gap = exact_check(solver, "pgp2like", x)
+        out[what] = {"x": x.tolist(), "exact_objective": exact,
+                     "exact_gap": gap, "ub": ev.mean,
+                     "ub_vs_exact": abs(ev.mean - exact) / abs(exact)}
+        if out[what]["ub_vs_exact"] > EVAL_LIMIT:
+            fail(f"cli_pgp2like_m3: the {what}'s UB is off its exact "
+                 f"objective ({out[what]})")
+    out["compromise"].update(qp[0] if len(qp) == 1 else {"solves": qp})
+    if rc != 0 or len(reps) != CLI_REPS or len(qp) != 1 or \
+            out["compromise"]["exact_gap"] > GAP_LIMIT:
+        fail(f"cli_pgp2like_m3: {out}")
+    if {"detailedResults.csv", "incumb.dat", "results.jsonl",
+            "summary.dat"} - set(files) or len(rows) != CLI_REPS or \
+            any(float(v) < 0 for row in rows
+                for v in row.split("\t")[4:8]) or \
+            "Compromise solution" not in summary or \
+            "Average solution" not in summary or min(metric_lines) <= 0:
+        fail(f"cli_pgp2like_m3: result files ({out}, {rows})")
+    if sum(phase_launches) != CLI_REPS * (1 + SAMPLES) or \
+            launches != out["cuts_formed"] + sum(phase_launches):
+        fail(f"cli_pgp2like_m3: {launches} kernel launches for "
+             f"{out['cuts_formed']} cuts formed and {sum(phase_launches)} "
+             "phase-time cuts")
+    if "Starting two-stage stochastic decomposition (PyTorch)." not in \
+            text.getvalue():
+        fail("cli_pgp2like_m3: the CLI did not start")
     return out
 
 
@@ -705,7 +962,49 @@ def phase_storm_b8(dev, flush):
     if not np.all(np.isfinite(res.incumb_x)):
         fail("stormlike_b8: non-finite incumbent")
     out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
-    return out, solver, res
+    out["rep1"], out["compromise"], launches1 = storm_compromise(solver, res)
+    return out, solver, res, launches1
+
+
+def storm_compromise(solver, res):
+    """A second replication (RUN_SEED[1]) of the same steps, then the
+    compromise of the two at full width: the batch QP must certify, and the
+    compromise decision meet the first-stage rows and bounds.  Returns
+    (replication fields, compromise fields, kernel launches of the second
+    replication)."""
+    from stochasticdecomposition_torch.core.compromise import (
+        solve_compromise,
+    )
+    from stochasticdecomposition_torch.ops import argmax
+
+    dev = solver.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    argmax.launches = 0
+    res1 = solver.solve_replication(1)
+    torch.cuda.synchronize()
+    launches = argmax.launches
+    rep1 = {"samples": res1.iterations, "sd_seconds": res1.time_total,
+            "launches": launches, "cuts_formed": res1.cuts_formed,
+            "master_failures": res1.master_failures,
+            "incumb_est": res1.incumb_est,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+    if launches != res1.cuts_formed or res1.master_failures or \
+            res1.iterations != res.iterations:
+        fail(f"stormlike_b8 replication 1: {rep1}")
+    qp = []
+    t = time.monotonic()
+    with recording_qp(qp):
+        cx, ax = solve_compromise(solver.pa, [res.batch_entry,
+                                              res1.batch_entry])
+    comp = {"seconds": time.monotonic() - t, **qp[0],
+            "n1": int(solver.pa.c1.shape[0]),
+            "first_stage_rows": int(solver.pa.b1.shape[0]),
+            "violation": first_stage_violation(solver.pa, cx),
+            "average_violation": first_stage_violation(solver.pa, ax)}
+    if len(qp) != 1 or not qp[0]["converged"] or \
+            comp["violation"] > COMPROMISE_VIOLATION:
+        fail(f"stormlike_b8 compromise: {comp}")
+    return rep1, comp, launches
 
 
 def eval_fields(solver, ev, seconds):
@@ -737,6 +1036,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: chip_smoke.py runs on a CUDA card")
     # The package must be importable from this checkout.
+    from stochasticdecomposition_torch import runner
     from stochasticdecomposition_torch.config import SDConfig
     from stochasticdecomposition_torch.ops import kernels
 
@@ -765,12 +1065,28 @@ def main() -> None:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
     launches = {}
-    for name in ("lands", "pgp2like"):
-        t = time.monotonic()
-        out, _, _, _ = phase_to_stop(name, dev, SDConfig(EVAL_FLAG=False),
-                                     flush)
-        launches[name] = out["launches"]
-        emit({"phase": name, **out, "seconds": time.monotonic() - t})
+    t = time.monotonic()
+    saves = []
+    with tempfile.TemporaryDirectory() as ckdir:
+        with swapped(runner, "save_state", timed(runner.save_state, saves)):
+            out, solver, res, _ = phase_to_stop(
+                "lands", dev, SDConfig(EVAL_FLAG=False), flush,
+                checkpoint_every=CKPT_EVERY, checkpoint_dir=ckdir)
+        out["checkpoint_seconds"] = sum(saves)
+        out["sd_seconds_without_checkpoints"] = out["sd_seconds"] - sum(saves)
+        out["checkpoint_bytes"] = [
+            os.path.getsize(p) for p in
+            sorted(glob.glob(os.path.join(ckdir, "rep00_k*.npz")))]
+        launches["lands"] = out["launches"]
+        out["resume"], launches["lands_resume"] = resume_check(solver, res,
+                                                               ckdir)
+    emit({"phase": "lands", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out, _, _, _ = phase_to_stop("pgp2like", dev, SDConfig(EVAL_FLAG=False),
+                                 flush)
+    launches["pgp2like"] = out["launches"]
+    emit({"phase": "pgp2like", **out, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
     out = phase_storm(dev, flush)
@@ -789,13 +1105,14 @@ def main() -> None:
         phase = f"{name}_b{batch}"
         t = time.monotonic()
         out, solver, res, rec = phase_to_stop(
-            name, dev, batched_cfg(name, batch), flush, evaluate=True)
+            name, dev, batched_cfg(name, batch), flush, via_run=True)
         launches[phase] = out["launches"]
         emit({"phase": phase, **out, "seconds": time.monotonic() - t})
         evals[name] = (solver, res, rec.eval_seconds)
 
     t = time.monotonic()
-    out, storm, storm_res = phase_storm_b8(dev, flush)
+    out, storm, storm_res, launches["stormlike_b8_rep1"] = \
+        phase_storm_b8(dev, flush)
     launches["stormlike_b8"] = out["launches"]
     emit({"phase": "stormlike_b8", **out, "seconds": time.monotonic() - t})
 
@@ -879,6 +1196,12 @@ def main() -> None:
     out = phase_intcap_miqp(dev, flush)
     launches["intcaplike_miqp"] = out["launches"]
     emit({"phase": "intcaplike_miqp", **out,
+          "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_cli(dev)
+    launches["cli_pgp2like_m3"] = out["launches"]
+    emit({"phase": "cli_pgp2like_m3", **out,
           "seconds": time.monotonic() - t})
 
     emit({"phase": "total", "seconds": time.monotonic() - t_all})

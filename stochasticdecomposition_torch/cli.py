@@ -1,0 +1,180 @@
+"""Command line interface.
+
+Mirrors the reference CLI (parseCmdLine, twoSD.c:67-128) as the JAX
+package's ``cli.py`` does: ``-p`` problem name, ``-i`` input dir, ``-o``
+output dir, ``-e`` eval flag, ``-d`` dual stability, ``-t {l,n,t}``
+tolerance preset, ``-m`` replications, ``-c`` compromise; ``--config`` for
+a config.sd file (readConfig, twoSD.c:152-254); checkpoints, resume, seed
+offset, metrics stream and phase times; and ``--device {cuda,cpu}``, the
+device the run uses (the CUDA card unless the CPU is asked for).  ``--mesh``
+and ``--distributed`` are parsed and refused: runs over several cards are
+not ported yet (ROADMAP A17).
+
+Usage:  python -m stochasticdecomposition_torch.cli -p lands -o out/
+Built-in instances resolve without ``-i`` (e.g. ``-p lands``).  Results go
+to ``<out>/twoSD_torch/<prob>/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from stochasticdecomposition_torch.config import SDConfig, load_config
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="twoSD-torch",
+        description="Two-stage stochastic decomposition in PyTorch")
+    p.add_argument("-p", dest="prob_name", required=True,
+                   help="problem name (SMPS base name or built-in instance)")
+    p.add_argument("-i", dest="input_dir", default=None,
+                   help="directory with <prob>.cor/.tim/.sto")
+    p.add_argument("-o", dest="output_dir", default="./output",
+                   help="output directory for result files")
+    p.add_argument("-e", dest="eval_flag", type=int, default=None,
+                   help="evaluate the final solution out of sample {0,1}")
+    p.add_argument("-d", dest="dual_stability", type=int, default=None,
+                   help="use the dual stability test {0,1}")
+    p.add_argument("-t", dest="tolerance", choices=["l", "n", "t"],
+                   default=None, help="tolerance preset: loose/nominal/tight")
+    p.add_argument("-m", dest="multiple_rep", type=int, default=None,
+                   help="number of replications")
+    p.add_argument("-c", dest="compromise", type=int, default=None,
+                   help="build and solve the compromise problem {0,1}")
+    p.add_argument("--config", dest="config_path", default=None,
+                   help="path to a config.sd file")
+    p.add_argument("--max-iter", dest="max_iter", type=int, default=None)
+    p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                   default=0, metavar="N",
+                   help="save the full solver state every N iterations")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
+    p.add_argument("--resume", dest="resume_from", default=None,
+                   metavar="CKPT.npz",
+                   help="resume replication 0 from a saved state")
+    p.add_argument("--seed-offset", dest="seed_offset", type=int, default=0,
+                   metavar="K",
+                   help="rotate the RUN_SEED/EVAL_SEED banks by K entries so "
+                        "replication r uses seed bank entry (r+K) mod 30 — "
+                        "lets independent jobs cover disjoint seeds")
+    p.add_argument("--metrics-every", dest="metrics_every", type=int,
+                   default=0, metavar="N",
+                   help="write a per-iteration JSONL metrics stream "
+                        "(metrics_repNN.jsonl) every N iterations")
+    p.add_argument("--time-phases", dest="time_phases", action="store_true",
+                   help="estimate per-phase times (master/subproblem/"
+                        "optimality/argmax) for detailedResults.csv by "
+                        "timing the step's pieces on the final state")
+    p.add_argument("--mesh", dest="mesh", default=None, metavar="RxO",
+                   help="not ported yet (ROADMAP A17): refused")
+    p.add_argument("--distributed", dest="distributed", action="store_true",
+                   help="not ported yet (ROADMAP A17): refused")
+    p.add_argument("--device", dest="device", choices=["cuda", "cpu"],
+                   default="cuda",
+                   help="the device to run on (default: the CUDA card)")
+    return p
+
+
+def apply_seed_offset(cfg: SDConfig, offset: int) -> SDConfig:
+    """Rotate the RUN_SEED/EVAL_SEED banks (config.sd:22-52,64-93) so
+    replication r draws bank entry (r + offset) mod bank size — lets
+    independent jobs cover disjoint seeds (``--seed-offset``)."""
+    off = offset % len(cfg.RUN_SEED)
+    cfg.RUN_SEED = cfg.RUN_SEED[off:] + cfg.RUN_SEED[:off]
+    offe = offset % len(cfg.EVAL_SEED)
+    cfg.EVAL_SEED = cfg.EVAL_SEED[offe:] + cfg.EVAL_SEED[:offe]
+    return cfg
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.mesh or args.distributed:
+        print("--mesh and --distributed are not ported yet (ROADMAP A17): "
+              "replications run one after another on one device",
+              file=sys.stderr)
+        return 2
+
+    cfg = load_config(args.config_path) if args.config_path else SDConfig()
+    if args.eval_flag is not None:
+        cfg.EVAL_FLAG = bool(args.eval_flag)
+    if args.dual_stability is not None:
+        cfg.DUAL_STABILITY = bool(args.dual_stability)
+    if args.tolerance is not None:
+        cfg.apply_tolerance_preset(args.tolerance)
+    if args.multiple_rep is not None:
+        cfg.MULTIPLE_REP = args.multiple_rep
+    if args.compromise is not None:
+        cfg.COMPROMISE_PROB = bool(args.compromise)
+    if args.max_iter is not None:
+        cfg.MAX_ITER = args.max_iter
+    if args.seed_offset:
+        apply_seed_offset(cfg, args.seed_offset)
+    if cfg.MULTIPLE_REP == 1:
+        cfg.COMPROMISE_PROB = False
+
+    from stochasticdecomposition_torch.models.instances import (
+        INSTANCES, load_instance,
+    )
+    from stochasticdecomposition_torch.models.suite import (
+        SUITE, load_suite_instance,
+    )
+    from stochasticdecomposition_torch.prob import attach_stoc, decompose
+    from stochasticdecomposition_torch.runner import SDSolver
+    from stochasticdecomposition_torch.smps import read_smps
+    from stochasticdecomposition_torch.utils import io as sdio
+    from stochasticdecomposition_torch.utils.metrics import MetricsRecorder
+
+    if args.input_dir:
+        core, tim, stoc = read_smps(args.input_dir, args.prob_name)
+    elif args.prob_name in INSTANCES:
+        core, tim, stoc = load_instance(args.prob_name)
+    elif args.prob_name in SUITE:
+        core, tim, stoc = load_suite_instance(args.prob_name)
+    else:
+        print(f"unknown problem {args.prob_name!r}: provide -i or use one of "
+              f"{sorted(INSTANCES) + sorted(SUITE)}", file=sys.stderr)
+        return 2
+
+    sp = attach_stoc(decompose(core, tim, stoc), stoc)
+    solver = SDSolver(sp, cfg, device=args.device)
+
+    def log(s):
+        sys.stdout.write(s)
+        sys.stdout.flush()
+
+    print("Starting two-stage stochastic decomposition (PyTorch).")
+    if args.resume_from and not os.path.exists(args.resume_from):
+        print(f"checkpoint not found: {args.resume_from}", file=sys.stderr)
+        return 2
+    out_dir = os.path.join(args.output_dir, "twoSD_torch", args.prob_name)
+    ckpt_dir = args.checkpoint_dir
+    if args.checkpoint_every and not ckpt_dir:
+        ckpt_dir = os.path.join(out_dir, "checkpoints")
+    metrics = None
+    if args.metrics_every:
+        os.makedirs(out_dir, exist_ok=True)
+
+        def metrics(rep):
+            return MetricsRecorder(
+                os.path.join(out_dir, f"metrics_rep{rep:02d}.jsonl"),
+                every=args.metrics_every)
+    sdio.decompose_summary(sp, out=print)
+    result = solver.run(log=log, checkpoint_every=args.checkpoint_every,
+                        checkpoint_dir=ckpt_dir,
+                        resume_from=args.resume_from, metrics=metrics,
+                        time_phases=args.time_phases)
+    print()
+    for r in result.replications:
+        sdio.print_optimization_summary(r, cfg.MAX_ITER)
+        if r.eval is not None:
+            sdio.print_evaluation_summary(r.eval)
+
+    sdio.write_all(out_dir, result, sp=sp, max_iter=cfg.MAX_ITER)
+    print(f"\nResults written to {out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,8 +12,7 @@ card's native type), SUBPROB_STAGED_BATCH (a guard against a TPU kernel
 fault; the port solves all lanes in one pass, up to
 ops/simplex.lane_cap, which is sized for the card's memory) and
 MEMORY_BUDGET_GB.  Every MASTER_TYPE runs (the LP, MILP, QP and MIQP
-masters); MULTIPLE_REP > 1 and COMPROMISE_PROB raise NotImplementedError in
-``SDSolver.run`` (ROADMAP A15).
+masters), as do MULTIPLE_REP > 1 and COMPROMISE_PROB (``SDSolver.run``).
 """
 
 from __future__ import annotations

@@ -1,19 +1,25 @@
-"""Problem data and SD state carried across from numpy arrays.
+"""Problem data, SD state and compromise entries carried across from numpy
+arrays.
 
-``problem_from_numpy`` and ``state_from_numpy`` take ``{field: np.ndarray}``
-— as a test builds it from another implementation's containers with
-``np.asarray`` — and return the port's ``ProblemArrays`` / ``SDState`` on a
-device, so two implementations can start from the same state at any step.
-Fields the port does not carry (the PRNG key, the feasibility cut count,
-which the port reads off ``fcut_mask``) are ignored; a missing field
-raises.
+``problem_from_numpy``, ``state_from_numpy`` and ``batch_entry_from_numpy``
+take ``{field: np.ndarray}`` — as a test builds it from another
+implementation's containers with ``np.asarray`` — and return the port's
+``ProblemArrays`` / ``SDState`` on a device, or its host-side
+``BatchEntry``, so two implementations can start from the same state at any
+step or solve the same compromise.  Fields the port does not carry (the PRNG
+key, the feasibility cut count, which the port reads off ``fcut_mask``) are
+ignored; a missing field raises.  ``utils/checkpoint.load_checkpoint``
+reads the JAX package's checkpoints by the same rules.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from stochasticdecomposition_torch.core.compromise import BatchEntry
 from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
 
 _INT_FIELDS = {
@@ -21,6 +27,7 @@ _INT_FIELDS = {
     "lambda_rows", "C_cols", "lam_pos_C", "C_cols_rand", "omega_w",
     "sigma_lidx", "sigma_ck", "cut_ns", "cut_omega_cnt", "cut_istar",
     "warm_basis", "basis_sigma0", "basis_sigma_idx", "basis_ck",
+    "lane_iters",
 }
 _INT8_FIELDS = {"basis_cstat", "basis_rstat"}
 _BOOL_TENSORS = {"sigma_feas", "cut_mask", "fcut_mask", "warm_atup", "int1",
@@ -72,3 +79,23 @@ def state_from_numpy(fields: dict, device="cpu",
                      dtype=torch.float64) -> SDState:
     return _build(SDState, fields, device, dtype)
 
+
+
+def batch_entry_from_numpy(fields: dict) -> BatchEntry:
+    """A compromise entry from another implementation's ``BatchEntry``
+    fields, in the port's types (host arrays, copies)."""
+    missing = [f.name for f in dataclasses.fields(BatchEntry)
+               if f.name not in fields]
+    if missing:
+        raise KeyError(f"BatchEntry fields missing: {missing}")
+    return BatchEntry(
+        incumb_x=np.array(fields["incumb_x"], np.float64),
+        k=int(fields["k"]), quad_scalar=float(fields["quad_scalar"]),
+        obj_lb=float(fields["obj_lb"]),
+        cut_alpha=np.array(fields["cut_alpha"], np.float64),
+        cut_beta=np.array(fields["cut_beta"], np.float64),
+        cut_ns=np.array(fields["cut_ns"], np.int64),
+        cut_mask=np.array(fields["cut_mask"], bool),
+        fcut_alpha=np.array(fields["fcut_alpha"], np.float64),
+        fcut_beta=np.array(fields["fcut_beta"], np.float64),
+        fcut_mask=np.array(fields["fcut_mask"], bool))

@@ -42,7 +42,8 @@ def _solve(K, rhs):
 
 
 def solve_qp(Q, c, A, b, G, h, *, max_iter: int = 200, tol: float = 1e-9,
-             ineq_mask=None, eq_mask=None, polish: bool = True) -> QPResult:
+             ineq_mask=None, eq_mask=None, polish: bool = True,
+             consistent_clamp: bool = False) -> QPResult:
     """Solve the convex QP.  Empty A/G allowed (0 rows).
 
     ``max_iter`` is 200 where the JAX package has 60: storm-scale masters
@@ -53,6 +54,16 @@ def solve_qp(Q, c, A, b, G, h, *, max_iter: int = 200, tol: float = 1e-9,
     ``ineq_mask``/``eq_mask`` optionally disable padded rows (True = active):
     masked-out inequality rows behave as 0'v <= 1, masked-out equality rows as
     0'v = 0, so callers can preallocate constraint blocks at fixed capacity.
+
+    ``consistent_clamp`` (the compromise QP): the dual step is taken with
+    the clamped barrier weights the KKT matrix was built with, so each step
+    keeps the linearised dual residual at zero.  Without it (the JAX
+    package's solver, kept for the master's parity), rows whose z/s passes
+    the clamp get a dual step the KKT matrix did not see: in a degenerate
+    end game the dual residual then jumps from 1e-7 to ~1, and the loop
+    wanders to its cap (the compromise of two short stormlike replications
+    stalls so in both packages; with the flag it certifies in 17-30
+    iterations).
     """
     dtype, dev = Q.dtype, Q.device
     n = Q.shape[0]
@@ -153,7 +164,8 @@ def solve_qp(Q, c, A, b, G, h, *, max_iter: int = 200, tol: float = 1e-9,
         rhs_v = -(rd + G.T @ ((-rc_aff + z * rg) / s))
         dv_aff, dy_aff = kkt_solve(M, rhs_v, -rp)
         ds_aff = -rg - G @ dv_aff
-        dz_aff = (-rc_aff - z * ds_aff) / s
+        dz_aff = ((-rc_aff + z * rg) / s + zs * (G @ dv_aff)
+                  if consistent_clamp else (-rc_aff - z * ds_aff) / s)
 
         ap_aff = max_step(s, ds_aff)
         ad_aff = max_step(z, dz_aff)
@@ -165,7 +177,8 @@ def solve_qp(Q, c, A, b, G, h, *, max_iter: int = 200, tol: float = 1e-9,
         rhs_v = -(rd + G.T @ ((-rc + z * rg) / s))
         dv, dy = kkt_solve(M, rhs_v, -rp)
         ds = -rg - G @ dv
-        dz = (-rc - z * ds) / s
+        dz = ((-rc + z * rg) / s + zs * (G @ dv)
+              if consistent_clamp else (-rc - z * ds) / s)
 
         frac = 0.995
         ap = frac * max_step(s, ds)

@@ -1,22 +1,26 @@
 """Replication driver: the ``algo()`` / ``solveCell()`` equivalent.
 
 Reference: algo.c.  ``SDSolver`` stages one problem on the device and runs
-a replication: SD steps (core/step.py; SAMPLE_INCREMENT samples each,
-CHECK_EVERY steps between two host gates) until the statistical stop
+MULTIPLE_REP replications: SD steps (core/step.py; SAMPLE_INCREMENT samples
+each, CHECK_EVERY steps between two host gates) until the statistical stop
 (pre-test, then the bootstrap full test, optimal.c) or MAX_ITER samples,
-then the out-of-sample evaluation of the incumbent when EVAL_FLAG is set.
-A replication draws from its own ``torch.Generator`` pair seeded from
-RUN_SEED, the evaluation from one seeded from EVAL_SEED.  An infeasible
-subproblem sends the replication into feasibility mode
-(core/feasibility.py); under MASTER_TYPE 1/7 a branch-and-bound over the
-master's relaxations (core/bnb.py) makes every candidate integral.  Several
-replications with the compromise problem, the CLI, checkpoints, metrics
-files and meshes are not ported yet (ROADMAP A15-A17).
+each followed by the out-of-sample evaluation of its incumbent when
+EVAL_FLAG is set; then, with COMPROMISE_PROB, the compromise and the
+average decisions (core/compromise.py), both evaluated.  A replication
+draws from its own ``torch.Generator`` pair seeded from RUN_SEED, an
+evaluation from one seeded from EVAL_SEED.  An infeasible subproblem sends
+the replication into feasibility mode (core/feasibility.py); under
+MASTER_TYPE 1/7 a branch-and-bound over the master's relaxations
+(core/bnb.py) makes every candidate integral.  A replication can be
+checkpointed and resumed (utils/checkpoint.py), can stream its metrics and
+estimate its phase times (utils/metrics.py).  Replications on a mesh of
+cards are not ported yet (ROADMAP A17).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import List, Optional
@@ -28,6 +32,10 @@ from stochasticdecomposition_torch.config import (
     MASTER_MILP, MASTER_MIQP, SDConfig,
 )
 from stochasticdecomposition_torch.core.bnb import make_mip_master
+from stochasticdecomposition_torch.core.compromise import (
+    BatchEntry, batch_entry_from_state, solve_compromise,
+    solve_compromise_mip,
+)
 from stochasticdecomposition_torch.core.cuts import max_cut_height
 from stochasticdecomposition_torch.core.evaluate import (
     EvalResult, eval_generator, evaluate, make_eval_batch,
@@ -49,8 +57,15 @@ from stochasticdecomposition_torch.device import resolve_device
 from stochasticdecomposition_torch.ops.simplex import (
     STATUS_OPTIMAL, lane, solve_lp,
 )
-from stochasticdecomposition_torch.prob import StagedProblem
+from stochasticdecomposition_torch.prob import (
+    StagedProblem, attach_stoc, decompose,
+)
 from stochasticdecomposition_torch.sampler import build_sampler
+from stochasticdecomposition_torch.smps import read_smps
+from stochasticdecomposition_torch.utils.checkpoint import (
+    load_checkpoint, save_state,
+)
+from stochasticdecomposition_torch.utils.metrics import estimate_phase_times
 
 
 def check_pool_overflow(omega_cnt: int, lambda_cnt: int, sigma_cnt: int,
@@ -94,12 +109,24 @@ class ReplicationResult:
     cuts_formed: int = 0        # SD cuts formed (argmax calls)
     feas_rounds: int = 0        # feasibility-mode rounds
     eval: Optional[EvalResult] = None
+    batch_entry: Optional[BatchEntry] = None   # compromise artifacts (host)
+    # Per-phase seconds (runTime analog, twoSD.h:87-99): estimates from
+    # utils/metrics.estimate_phase_times when the run asked for them
+    # (``time_phases``); -1 = not measured.
+    time_master: float = -1.0
+    time_subprob: float = -1.0
+    time_opttest: float = -1.0
+    time_argmax: float = -1.0
 
 
 @dataclasses.dataclass
 class RunResult:
     problem: str
     replications: List[ReplicationResult]
+    compromise_x: Optional[np.ndarray] = None
+    average_x: Optional[np.ndarray] = None
+    compromise_eval: Optional[EvalResult] = None
+    average_eval: Optional[EvalResult] = None
 
 
 def mean_value_solution(sp: StagedProblem, device: torch.device,
@@ -182,25 +209,57 @@ class SDSolver:
         self._eval_batch = 0
 
     def solve_replication(self, rep: int = 0, log=lambda s: None,
-                          metrics=None) -> ReplicationResult:
+                          checkpoint_every: int = 0,
+                          checkpoint_dir: str | None = None,
+                          resume_from: str | None = None,
+                          metrics=None,
+                          time_phases: bool = False) -> ReplicationResult:
         """One replication to the certified stop or MAX_ITER samples.
-        ``metrics``, if given, has its ``record(state)`` called after
-        every call of the step."""
+
+        ``metrics``, if given, has its ``record(state)`` called after every
+        call of the step.  With ``checkpoint_every`` and ``checkpoint_dir``
+        the state and the host loop's state are saved to
+        ``rep{rep:02d}_k{k:06d}.npz`` whenever k has advanced by at least
+        ``checkpoint_every`` samples since the last save (elapsed k, so that
+        batched strides do not skip saves), at the end of a loop pass;
+        ``resume_from`` continues from such a file.  ``time_phases`` fills
+        the result's phase times (utils/metrics.estimate_phase_times)."""
         cfg = self.cfg
         t0 = time.monotonic()
         gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
         state = init_state(self.pa, self.caps, cfg, self.mean_sol)
+        pool_alpha, pool_beta = [], []      # the feasibility cut pool
+        n_full_tests = 0
+        master_fails = 0
+        master_failures = 0
+        if resume_from:
+            state, extras = load_checkpoint(resume_from, state)
+            if "generators" in extras:
+                if extras["device_type"] != self.device.type:
+                    raise ValueError(
+                        f"checkpoint {resume_from} holds "
+                        f"{extras['device_type']} generator states; this "
+                        f"solver runs on {self.device.type}")
+                gen.set_state(extras["generators"][0])
+                boot_gen.set_state(extras["generators"][1])
+            if "pool_alpha" in extras:
+                pool_alpha = extras["pool_alpha"]
+                pool_beta = extras["pool_beta"]
+            else:
+                # No pool saved: reset the watermarks so update_feas_cut_pool
+                # rebuilds it from the restored sigma/delta pools.
+                state = state._replace(f_updt=(0, 0))
+            n_full_tests = extras.get("n_full_tests", 0)
+            master_failures = extras.get("master_failures", 0)
+            master_fails = extras.get("master_fails", 0)
         t_setup = time.monotonic() - t0
+        last_ckpt_k = state.k
 
         # LP and MILP masters have no bootstrap lower bound (fullTest aborts
         # at optimal.c:104-108): they run to MAX_ITER.  MIQP keeps the
         # statistical stop on its relaxation's duals.
         stat_stop = not lp_master(cfg)
-        pool_alpha, pool_beta = [], []      # the feasibility cut pool
         optimal = False
-        n_full_tests = 0
-        master_fails = 0
-        master_failures = 0
         while state.k < cfg.MAX_ITER:
             k = state.k
             # Optimality gate (optimal.c:23-42): min iterations + stable duals
@@ -246,6 +305,20 @@ class SDSolver:
                 state = self._mip_commit(state, log)
             if k % 100 == 0:
                 log(f"\nIteration-{k:4d}: ")
+            # Saved after the pass's feasibility, master and B&B handling,
+            # so a resume starts where the next pass would.
+            if checkpoint_every and checkpoint_dir and \
+                    state.k - last_ckpt_k >= checkpoint_every:
+                last_ckpt_k = state.k
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                save_state(
+                    os.path.join(checkpoint_dir,
+                                 f"rep{rep:02d}_k{state.k:06d}.npz"),
+                    state, generators=(gen, boot_gen),
+                    pool_alpha=pool_alpha, pool_beta=pool_beta,
+                    counters=dict(n_full_tests=n_full_tests,
+                                  master_failures=master_failures,
+                                  master_fails=master_fails))
 
         if self.mip_master is not None:
             # The incumbent starts at the (possibly fractional) mean-value
@@ -260,7 +333,7 @@ class SDSolver:
         check_pool_overflow(state.omega_cnt, state.lambda_cnt,
                             state.sigma_cnt, self.caps, rep)
         n_cuts = int(torch.sum(state.cut_mask))
-        return ReplicationResult(
+        result = ReplicationResult(
             rep=rep,
             iterations=state.k,
             incumb_x=state.incumb_x.cpu().numpy(),
@@ -280,7 +353,15 @@ class SDSolver:
             master_failures=master_failures,
             cuts_formed=state.cut_cnt,
             feas_rounds=state.feas_cnt,
+            batch_entry=batch_entry_from_state(state),
         )
+        if time_phases:
+            # On copies of the final state, after the result is read: the
+            # timed pieces grow the pools of the state they are given.
+            result = dataclasses.replace(result, **estimate_phase_times(
+                self, state, iterations=state.k, lp_count=state.lp_cnt,
+                full_tests=n_full_tests, tau=cfg.TAU))
+        return result
 
     def _mip_commit(self, state, log):
         """The integer master (MASTER_TYPE 1/7): the branch-and-bound over
@@ -324,15 +405,56 @@ class SDSolver:
         return evaluate(self.pa, self.spec, self.cfg, x, gen,
                         eval_batch_fn=self.eval_batch_fn, **kw)
 
-    def run(self, log=lambda s: None, metrics=None) -> RunResult:
-        """The run of ``algo()`` (algo.c:36-96) for one replication: solve
-        it, then evaluate its incumbent when EVAL_FLAG is set."""
+    def run(self, log=lambda s: None, checkpoint_every: int = 0,
+            checkpoint_dir: str | None = None,
+            resume_from: str | None = None, time_phases: bool = False,
+            metrics=None) -> RunResult:
+        """The run of ``algo()`` (algo.c:36-96): MULTIPLE_REP replications,
+        each evaluated on EVAL_SEED[rep] when EVAL_FLAG is set, then with
+        COMPROMISE_PROB the compromise and the average decisions, both
+        evaluated on EVAL_SEED[0].  ``resume_from`` applies to replication
+        0.  ``metrics`` is a recorder given every replication's states, or
+        a callable ``rep -> recorder`` whose recorder takes that
+        replication's states and is closed after it (the CLI's
+        ``metrics_repNN.jsonl``)."""
         cfg = self.cfg
-        if cfg.MULTIPLE_REP > 1 or cfg.COMPROMISE_PROB:
-            raise NotImplementedError(
-                "MULTIPLE_REP > 1 and the compromise problem are not ported "
-                "yet (ROADMAP A15)")
-        r = self.solve_replication(0, log=log, metrics=metrics)
-        if cfg.EVAL_FLAG:
-            r.eval = self.evaluate_x(r.incumb_x, 0)
-        return RunResult(problem=self.sp.name, replications=[r])
+        per_rep = metrics is not None and not hasattr(metrics, "record")
+        reps = []
+        for rep in range(cfg.MULTIPLE_REP):
+            rec = metrics(rep) if per_rep else metrics
+            try:
+                r = self.solve_replication(
+                    rep, log=log, checkpoint_every=checkpoint_every,
+                    checkpoint_dir=checkpoint_dir,
+                    resume_from=resume_from if rep == 0 else None,
+                    metrics=rec, time_phases=time_phases)
+            finally:
+                if per_rep:
+                    rec.close()
+            if cfg.EVAL_FLAG:
+                r.eval = self.evaluate_x(r.incumb_x, rep)
+            reps.append(r)
+        result = RunResult(problem=self.sp.name, replications=reps)
+
+        if cfg.COMPROMISE_PROB and len(reps) > 1:
+            entries = [r.batch_entry for r in reps]
+            # Integer mode: the reference applies MASTER_TYPE to the batch
+            # problem too (compromise.c:260).
+            solve = solve_compromise if self.mip_master is None else \
+                solve_compromise_mip
+            result.compromise_x, result.average_x = solve(self.pa, entries)
+            if cfg.EVAL_FLAG:
+                result.compromise_eval = self.evaluate_x(
+                    result.compromise_x, 0)
+                result.average_eval = self.evaluate_x(result.average_x, 0)
+        return result
+
+
+def solve_smps(input_dir: str, prob_name: str,
+               cfg: Optional[SDConfig] = None, device=None,
+               log=lambda s: None) -> RunResult:
+    """End-to-end entry: read the SMPS triplet, decompose, run (twoSD.c
+    main).  ``device=None`` is the CUDA card."""
+    core, tim, stoc = read_smps(input_dir, prob_name)
+    sp = attach_stoc(decompose(core, tim, stoc), stoc)
+    return SDSolver(sp, cfg or SDConfig(), device=device).run(log=log)

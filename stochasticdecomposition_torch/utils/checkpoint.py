@@ -1,0 +1,151 @@
+"""Checkpoint / resume of one replication.
+
+The reference has none (its state lives in RAM).  The port's ``SDState``
+serializes to one ``.npz``: every field by name — tensors as arrays, the
+Python counts and flags as 0-d arrays, ``f_updt`` as a pair, and a field
+that is ``None`` as the flag ``__host_none_<field>`` — plus ``__host_``
+extras for the host loop, so that a resumed replication returns what an
+uninterrupted one returns in every field but the times.  A tensor is saved
+as its leading box outside which every element is zero bit for bit, with
+its full shape as ``__host_shape_<field>``; loading pads it back with
+zeros.  The pools are allocated at capacity and filled from the front, so
+a checkpoint holds about their live prefixes (lands at the default
+capacities: the [L, O] delta table alone is 300 MB in f64).  The extras:
+
+  * ``gen_obs`` / ``gen_boot``: the states of the replication's two
+    ``torch.Generator`` (observations and bootstrap resampling,
+    ``runner.replication_generators``), with ``device_type``: a generator's
+    state loads only into a generator on the same kind of device;
+  * ``pool_alpha`` / ``pool_beta``: the feasibility cut pool (updtFeasCutPool's
+    accumulated (ray x observation) cuts, cuts.c:465-517; ``f_updt``'s
+    watermarks make it unreconstructable without them);
+  * ``n_full_tests``, ``master_failures``, ``master_fails``: the counters the
+    runner reports.
+
+A checkpoint written by the JAX package (``utils/checkpoint.py`` there)
+loads too: the fields the port carries are kept, its PRNG key and JAX-only
+fields are ignored (as ``interop.state_from_numpy`` does), and the port's own
+counters start at their defaults.  The threefry key cannot be continued in
+torch, so the resumed replication's generators start from its RUN_SEED.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stochasticdecomposition_torch.core.state import SDState
+from stochasticdecomposition_torch.interop import _convert
+
+_HOST_PREFIX = "__host_"
+_NONE_PREFIX = _HOST_PREFIX + "none_"
+_SHAPE_PREFIX = _HOST_PREFIX + "shape_"
+_SAME_SIZE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                  8: torch.int64}
+_COUNTERS = ("n_full_tests", "master_failures", "master_fails")
+# The field only the JAX package's state has; it marks its checkpoints.
+_JAX_KEY = "key"
+
+
+def _nonzero_box(t: torch.Tensor) -> torch.Tensor:
+    """The leading box of ``t`` outside which every element is zero bit
+    for bit (-0.0 and NaN are data), taken on ``t``'s device."""
+    if not t.numel():
+        return t
+    nz = t.detach().view(_SAME_SIZE_INT[t.element_size()]) != 0
+    ends = []
+    for d in range(t.dim()):
+        hit = torch.nonzero(nz.movedim(d, 0).reshape(t.shape[d], -1).any(1))
+        ends.append(int(hit[-1]) + 1 if hit.numel() else 0)
+    return t[tuple(slice(0, e) for e in ends)]
+
+
+def save_state(path: str, state: SDState, *, generators=(),
+               pool_alpha: Optional[List[float]] = None,
+               pool_beta: Optional[List[np.ndarray]] = None,
+               counters: Optional[dict] = None) -> None:
+    """Write ``state`` and the host extras to ``path`` (an ``.npz``).
+    ``generators`` is the replication's (observations, bootstrap) pair."""
+    arrays = {}
+    for f in SDState._fields:
+        v = getattr(state, f)
+        if v is None:
+            arrays[_NONE_PREFIX + f] = np.asarray(True)
+        elif isinstance(v, torch.Tensor) and v.dim():
+            arrays[f] = _nonzero_box(v).cpu().numpy()
+            arrays[_SHAPE_PREFIX + f] = np.asarray(v.shape)
+        else:
+            arrays[f] = np.asarray(v.cpu() if isinstance(v, torch.Tensor)
+                                   else v)
+    if generators:
+        gen_obs, gen_boot = generators
+        arrays[_HOST_PREFIX + "gen_obs"] = gen_obs.get_state().numpy()
+        arrays[_HOST_PREFIX + "gen_boot"] = gen_boot.get_state().numpy()
+        arrays[_HOST_PREFIX + "device_type"] = np.asarray(
+            gen_obs.device.type)
+    if pool_alpha:
+        arrays[_HOST_PREFIX + "pool_alpha"] = np.asarray(pool_alpha)
+        arrays[_HOST_PREFIX + "pool_beta"] = np.stack(pool_beta)
+    for name, v in (counters or {}).items():
+        arrays[_HOST_PREFIX + name] = np.asarray(int(v))
+    np.savez_compressed(path, **arrays)
+
+
+def load_state(path: str, like: SDState) -> SDState:
+    """Load a checkpoint's state; ``like`` (a fresh ``init_state`` with the
+    same capacities) supplies the device, the float dtype and the shapes."""
+    state, _ = load_checkpoint(path, like)
+    return state
+
+
+def load_checkpoint(path: str, like: SDState) -> Tuple[SDState, dict]:
+    """Load a checkpoint and its host extras (``generators`` as the two
+    state tensors, ``device_type``, ``pool_alpha``/``pool_beta``, the
+    counters; only what the file holds).  Raises ValueError on a missing
+    field or a shape that differs from ``like``'s."""
+    dev, dtype = like.candid_x.device, like.candid_x.dtype
+    with np.load(path) as data:
+        data = dict(data)
+    from_jax = _JAX_KEY in data
+    kwargs = {}
+    for f in SDState._fields:
+        ref = getattr(like, f)
+        if f not in data:
+            if data.get(_NONE_PREFIX + f) is not None:
+                kwargs[f] = None
+                continue
+            if from_jax and f in SDState._field_defaults:
+                continue        # a port-only counter: its default
+            # A checkpoint with fewer fields would resume with mixed
+            # restored and fresh state: a silent break of the resume.
+            raise ValueError(
+                f"checkpoint {path} lacks state field {f!r}; resuming it "
+                "would silently mix restored and fresh state")
+        arr = data[f]
+        shape = tuple(int(e) for e in data.get(_SHAPE_PREFIX + f, arr.shape))
+        if isinstance(ref, torch.Tensor) and shape != tuple(ref.shape):
+            raise ValueError(
+                f"checkpoint field {f} has shape {shape}, expected "
+                f"{tuple(ref.shape)} (capacities/config must match)")
+        if shape != arr.shape:          # a saved box: pad it with zeros
+            box, arr = arr, np.zeros(shape, arr.dtype)
+            arr[tuple(slice(0, e) for e in box.shape)] = box
+        kwargs[f] = _convert(f, arr, dev, dtype)
+
+    extras = {}
+    if _HOST_PREFIX + "gen_obs" in data:
+        extras["device_type"] = str(data[_HOST_PREFIX + "device_type"])
+        extras["generators"] = tuple(
+            torch.as_tensor(data[_HOST_PREFIX + g])
+            for g in ("gen_obs", "gen_boot"))
+    if _HOST_PREFIX + "pool_alpha" in data:
+        extras["pool_alpha"] = [float(a)
+                                for a in data[_HOST_PREFIX + "pool_alpha"]]
+        extras["pool_beta"] = [np.asarray(b)
+                               for b in data[_HOST_PREFIX + "pool_beta"]]
+    for name in _COUNTERS:
+        if _HOST_PREFIX + name in data:
+            extras[name] = int(data[_HOST_PREFIX + name])
+    return SDState(**kwargs), extras

@@ -251,11 +251,14 @@ def test_lane_passes_match_one_pass(monkeypatch):
 
 
 def test_unported_configurations_raise():
-    """Several replications and the compromise problem (ROADMAP A15) are
-    what the port still refuses; the LP/MILP/MIQP masters and random costs
-    build."""
+    """Several replications and the compromise problem, which the port
+    refused before ROADMAP A15, now run: ``SDSolver.run`` returns every
+    replication and, with COMPROMISE_PROB, the compromise and average
+    decisions.  What the port still refuses is a run over several cards
+    (ROADMAP A17): the CLI's ``--mesh``."""
+    from stochasticdecomposition_torch import cli
     from stochasticdecomposition_torch.config import MASTER_LP
-    from stochasticdecomposition_torch.runner import SDSolver
+    from stochasticdecomposition_torch.runner import RunResult, SDSolver
 
     pa = stage_problem(port_problem("lands"), CPU)
     make_step(pa, None, SDConfig(MASTER_TYPE=MASTER_LP, EVAL_FLAG=False))
@@ -264,8 +267,19 @@ def test_unported_configurations_raise():
         solver = SDSolver(port_problem("lands"),
                           SDConfig(MAX_ITER=16, EVAL_FLAG=False, **kw),
                           device="cpu")
-        with pytest.raises(NotImplementedError, match="A15"):
-            solver.run()
+        result = solver.run()
+        assert isinstance(result, RunResult)
+        assert [r.rep for r in result.replications] == [0, 1]
+        assert all(r.iterations == 16 for r in result.replications)
+        if kw.get("COMPROMISE_PROB"):
+            assert result.compromise_x.shape == (4,)
+            np.testing.assert_array_equal(
+                result.average_x, np.mean([r.incumb_x for r in
+                                           result.replications], axis=0))
+        else:
+            assert result.compromise_x is None
+    assert cli.main(["-p", "lands", "--mesh", "2x1", "--device",
+                     "cpu"]) == 2
 
 
 def test_batched_replication_stops_and_flags_overflow():

@@ -227,8 +227,16 @@ def test_run_evaluates_the_incumbent_on_cpu():
     exact = exact_objective_fn(solver.pa, outs, probs)(r.incumb_x)
     assert abs(ev.mean - exact) / abs(exact) <= 0.01
     assert ev.ci_low < ev.mean < ev.ci_high
-    with pytest.raises(NotImplementedError, match="A15"):
-        SDSolver(sp, SDConfig(MAX_ITER=64, MULTIPLE_REP=2), device="cpu").run()
+    # Several replications with the compromise: every replication, the
+    # compromise and the average are evaluated (EVAL_SEED[rep], then
+    # EVAL_SEED[0]).
+    many = SDSolver(sp, SDConfig(MAX_ITER=64, MULTIPLE_REP=2,
+                                 COMPROMISE_PROB=True, EVAL_BATCH=256),
+                    device="cpu").run()
+    for ev in [r.eval for r in many.replications] + [
+            many.compromise_eval, many.average_eval]:
+        assert isinstance(ev, EvalResult) and ev.dropped == 0
+        assert ev.ci_low < ev.mean < ev.ci_high
 
 
 def test_evaluate_x_follows_eval_batch():

@@ -32,12 +32,15 @@ def _imported_roots(path):
 
 
 def test_every_module_is_checked():
-    """The check walks the whole package: the feasibility, random-cost and
-    branch-and-bound modules are among the files it reads."""
+    """The check walks the whole package: the feasibility, random-cost,
+    branch-and-bound and compromise modules, the CLI, checkpoints and
+    metrics are among the files it reads."""
     checked = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     for mod in ("core/feasibility.py", "core/randcost.py", "core/bnb.py",
-                "core/master.py", "core/step.py", "runner.py"):
+                "core/master.py", "core/step.py", "runner.py",
+                "core/compromise.py", "cli.py", "utils/checkpoint.py",
+                "utils/metrics.py"):
         assert mod in checked, mod
 
 
