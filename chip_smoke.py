@@ -2,12 +2,20 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16, started
+by torchrun; see there.)
+
 Each phase prints one JSON line with its seconds; any failure exits non-zero
 (nothing is swallowed).  Phases:
 
   0. device   — requires CUDA; the card's name and power limit (nvidia-smi),
                 torch and CUDA versions.
   1. build    — builds the kernel library from csrc/ with nvcc if missing.
+ 1b. smps_native — builds the native SMPS tokenizer (smps/native.py, g++)
+                and parses the core text of every models/instances.py
+                instance and of stormlike (528 x 1259 second stage) with it
+                and with the pure-Python parser: every field equal; the
+                seconds of each reader.
   2. kernel   — the triple masked argmax kernel against its plain PyTorch
                 version on f64 data from a numpy seed, at the main path's
                 shapes up to the default (7501, 5120): random masks, empty
@@ -96,6 +104,22 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 compromise and average sections, three metrics streams);
                 launches = cuts formed + (1 + SAMPLES) per replication for
                 the phase-time estimate's ``cut_step`` calls.
+ 16. cli_pgp2like_m3_mesh — the same run over three ranks that share the
+                card: ``python -m torch.distributed.run --standalone
+                --nproc_per_node 3 chip_smoke.py --mesh-rank DIR``, each
+                rank calling ``cli.main([... "--mesh", "3x1",
+                "--distributed", "-o", DIR/rankR])`` (no metrics, no phase
+                times) and then the sharded evaluation of MESH_EVAL_LANES
+                lanes on replication 0's incumbent.  Against phase 15's
+                results: iterations, certification, unique omegas and pool
+                sizes equal, incumbents and estimates within 1e-8 (whether
+                bit-identical is reported), the compromise and the average
+                within 1e-6, every UB within 1e-8; result files under rank
+                0's directory only; every rank on the card, its launches =
+                the cuts of its replication; the sharded evaluation equal
+                to ``make_eval_batch`` (n_ok exact, mean within 1e-10, M2
+                within 1e-8, relative).  Seconds, launches and peak memory
+                per rank.
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
 drives the path and requires, just after, as many launches as cuts formed
@@ -113,6 +137,7 @@ import glob
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -139,6 +164,8 @@ FEAS_ITERS = 300
 CKPT_EVERY = 100                 # lands: checkpoint cadence (samples)
 COMPROMISE_VIOLATION = 1e-6      # rows and bounds at the compromise
 CLI_REPS = 3
+MESH_EVAL_LANES = 192            # 64 lanes per rank
+MESH_TIMEOUT = 600               # seconds for the three ranks' run
 BAA_ITERS = 300
 LP_ITERS = 150
 LP_UB_LIMIT = 0.02               # LP-master UB against the optimum
@@ -890,6 +917,211 @@ def phase_cli(dev):
     if "Starting two-stage stochastic decomposition (PyTorch)." not in \
             text.getvalue():
         fail("cli_pgp2like_m3: the CLI did not start")
+    return out, result
+
+
+def mesh_rank(root):
+    """One rank of phase 16 (started by torchrun): the CLI over the 3x1
+    mesh, then the sharded evaluation beside ``make_eval_batch``; writes
+    ``root/rankR.json``."""
+    from stochasticdecomposition_torch import cli, runner
+    from stochasticdecomposition_torch.core.evaluate import (
+        eval_generator, make_eval_batch,
+    )
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.parallel.mesh import (
+        make_mesh, make_sharded_eval,
+    )
+
+    seen = {}
+    run = runner.SDSolver.run
+
+    def kept_run(self, *a, **kw):
+        seen["solver"] = self
+        seen["run"] = run(self, *a, **kw)
+        return seen["run"]
+
+    rank = int(os.environ["RANK"])
+    with swapped(runner.SDSolver, "run", kept_run):
+        argmax.launches = 0
+        t = time.monotonic()
+        rc = cli.main(["-p", "pgp2like", "-m", str(CLI_REPS), "-c", "1",
+                       "-e", "1", "--mesh", f"{CLI_REPS}x1",
+                       "--distributed", "-o",
+                       os.path.join(root, f"rank{rank}")])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t
+        launches = argmax.launches
+    solver, result = seen["solver"], seen["run"]
+    dev = solver.device
+    mesh = make_mesh(CLI_REPS, 1)
+    mine = [r for r in result.replications if mesh.lead_rank(r.rep) == rank]
+    out = {"rank": rank, "rc": rc,
+           "device": str(dev), "card": torch.cuda.get_device_name(dev),
+           "cli_seconds": seconds, "launches": launches,
+           "cuts_formed": sum(r.cuts_formed for r in mine),
+           "ran": [r.rep for r in mine],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "replications": [{
+               "rep": r.rep, "iterations": r.iterations,
+               "optimal": r.optimal, "unique_omegas": r.unique_omegas,
+               "pool_sizes": r.pool_sizes, "incumb_x": r.incumb_x.tolist(),
+               "incumb_est": r.incumb_est,
+               "ub": None if r.eval is None else r.eval.mean}
+               for r in result.replications]}
+    if result.compromise_x is not None:
+        out["compromise_x"] = result.compromise_x.tolist()
+        out["average_x"] = result.average_x.tolist()
+        out["compromise_ub"] = result.compromise_eval.mean
+        out["average_ub"] = result.average_eval.mean
+    x = result.replications[0].incumb_x
+    seed = solver.cfg.EVAL_SEED[0]
+    sharded = make_sharded_eval(solver.pa, solver.spec, MESH_EVAL_LANES,
+                                mesh)
+    t = time.monotonic()
+    got = sharded(x, eval_generator(seed, dev))
+    out["sharded_eval_seconds"] = time.monotonic() - t
+    want = make_eval_batch(solver.pa, solver.spec, MESH_EVAL_LANES)(
+        x, eval_generator(seed, dev))
+    out["sharded_eval"] = {"sharded": list(got), "single": list(want)}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def within(a, b, rtol) -> bool:
+    return bool(np.allclose(a, b, rtol=rtol, atol=rtol))
+
+
+def phase_cli_mesh(dev, seq):
+    """Phase 16: the CLI's run of phase 15 over three ranks on the card,
+    held against ``seq``, phase 15's RunResult."""
+    out = {"ranks": []}
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(CLI_REPS),
+               os.path.abspath(__file__), "--mesh-rank", root]
+        log_path = os.path.join(root, "torchrun.log")
+        t = time.monotonic()
+        with open(log_path, "w") as log:
+            # Its own session, so that a timeout kills the ranks too.
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=MESH_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = "timeout"
+        out["seconds_torchrun"] = time.monotonic() - t
+        text = open(log_path).read()
+        if rc != 0:
+            fail(f"cli_pgp2like_m3_mesh: torchrun exited {rc}:\n"
+                 f"{text[-6000:]}")
+        ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+                 for r in range(CLI_REPS)]
+        written = {r: os.path.isdir(os.path.join(root, f"rank{r}",
+                                                 "twoSD_torch"))
+                   for r in range(CLI_REPS)}
+        files = sorted(os.listdir(os.path.join(root, "rank0", "twoSD_torch",
+                                               "pgp2like"))) \
+            if written[0] else []
+    out["files_rank0"] = files
+    card = torch.cuda.get_device_name(dev)
+    identical = True
+    problems = []
+    for rk in ranks:
+        r = rk["rank"]
+        if f"rank {r} of {CLI_REPS}: {rk['device']} ({card})" not in text:
+            problems.append(f"rank {r} did not name its card")
+        if rk["rc"] != 0 or rk["card"] != card or \
+                not rk["device"].startswith("cuda"):
+            problems.append(f"rank {r} ran on {rk['device']} ({rk['card']})")
+        if rk["launches"] != rk["cuts_formed"] or rk["ran"] != [r]:
+            problems.append(f"rank {r}: {rk['launches']} launches for "
+                            f"{rk['cuts_formed']} cuts of {rk['ran']}")
+        for got, want in zip(rk["replications"], seq.replications):
+            if (got["iterations"], got["optimal"], got["unique_omegas"],
+                    got["pool_sizes"]) != (want.iterations, want.optimal,
+                                           want.unique_omegas,
+                                           want.pool_sizes) or \
+                    not within(got["incumb_x"], want.incumb_x, 1e-8) or \
+                    not within(got["incumb_est"], want.incumb_est, 1e-8):
+                problems.append(f"rank {r}: replication {got['rep']} "
+                                "differs from phase 15")
+            identical &= got["incumb_x"] == want.incumb_x.tolist() and \
+                got["incumb_est"] == want.incumb_est
+        ev = rk["sharded_eval"]
+        (m, m2, ok, n), (m1, m21, ok1, n1) = ev["sharded"], ev["single"]
+        if (ok, n) != (ok1, n1) or not np.isclose(m, m1, rtol=1e-10,
+                                                   atol=0) or \
+                not np.isclose(m2, m21, rtol=1e-8, atol=0):
+            problems.append(f"rank {r}: sharded evaluation {ev}")
+        out["ranks"].append({k: rk[k] for k in (
+            "rank", "device", "card", "cli_seconds", "launches",
+            "cuts_formed", "peak_allocated_bytes", "sharded_eval_seconds",
+            "sharded_eval")})
+    head = ranks[0]
+    for got, want in zip(head["replications"], seq.replications):
+        if not within(got["ub"], want.eval.mean, 1e-8):
+            problems.append(f"replication {got['rep']}: UB {got['ub']} vs "
+                            f"{want.eval.mean}")
+    for what, x, ev in (("compromise", seq.compromise_x,
+                         seq.compromise_eval),
+                        ("average", seq.average_x, seq.average_eval)):
+        if what + "_x" not in head or \
+                not within(head[what + "_x"], x, 1e-6) or \
+                not within(head[what + "_ub"], ev.mean, 1e-8):
+            problems.append(f"the {what} differs from phase 15")
+        out[what] = {"x": head.get(what + "_x"), "ub": head.get(what + "_ub")}
+    if any("compromise_x" in rk for rk in ranks[1:]):
+        problems.append("a rank other than 0 holds the compromise")
+    if not written[0] or any(written[r] for r in range(1, CLI_REPS)) or \
+            {"detailedResults.csv", "incumb.dat", "results.jsonl",
+             "summary.dat"} - set(files):
+        problems.append(f"result files: {written} {files}")
+    out["bit_identical_to_phase_15"] = identical
+    out["launches"] = sum(rk["launches"] for rk in ranks)
+    if problems:
+        fail(f"cli_pgp2like_m3_mesh: {problems} ({out})")
+    return out
+
+
+def phase_smps_native():
+    """The native tokenizer against the pure-Python parser on every
+    instance's core text and on stormlike's."""
+    import dataclasses
+
+    from stochasticdecomposition_torch.models.instances import INSTANCES
+    from stochasticdecomposition_torch.models.suite import SUITE
+    from stochasticdecomposition_torch.models.synthetic import (
+        random_two_stage,
+    )
+    from stochasticdecomposition_torch.smps import core, native
+
+    out = {"gpp_seconds": native.build(), "cases": {}}
+    native.library()
+    texts = {n: INSTANCES[n][0] for n in sorted(INSTANCES)}
+    texts["stormlike"] = random_two_stage(**SUITE["stormlike"])[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in texts.items():
+            path = os.path.join(tmp, f"{name}.cor")
+            with open(path, "w") as fh:
+                fh.write(text)
+            t = time.monotonic()
+            nat = core.read_core(path)
+            t_nat = time.monotonic() - t
+            t = time.monotonic()
+            py = core.read_core(path, prefer_native=False)
+            t_py = time.monotonic() - t
+            for f in dataclasses.fields(nat):
+                a, b = getattr(nat, f.name), getattr(py, f.name)
+                equal = a.dtype == b.dtype and np.array_equal(a, b) \
+                    if isinstance(a, np.ndarray) else a == b
+                if not equal:
+                    fail(f"smps_native: {name}: field {f.name} differs")
+            out["cases"][name] = {"shape": list(nat.A.shape),
+                                  "native_seconds": t_nat,
+                                  "python_seconds": t_py}
     return out
 
 
@@ -1060,6 +1292,10 @@ def main() -> None:
           "ptxas": ptxas, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
+    out = phase_smps_native()
+    emit({"phase": "smps_native", **out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
     kern = phase_kernel(dev)
     emit({"phase": "kernel", **kern, "seconds": time.monotonic() - t})
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -1199,9 +1435,16 @@ def main() -> None:
           "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    out = phase_cli(dev)
+    out, cli_result = phase_cli(dev)
     launches["cli_pgp2like_m3"] = out["launches"]
     emit({"phase": "cli_pgp2like_m3", **out,
+          "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_cli_mesh(dev, cli_result)
+    for rk in out["ranks"]:
+        launches[f"cli_pgp2like_m3_mesh_rank{rk['rank']}"] = rk["launches"]
+    emit({"phase": "cli_pgp2like_m3_mesh", **out,
           "seconds": time.monotonic() - t})
 
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
@@ -1227,4 +1470,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2])
+    else:
+        main()

@@ -6,9 +6,18 @@ output dir, ``-e`` eval flag, ``-d`` dual stability, ``-t {l,n,t}``
 tolerance preset, ``-m`` replications, ``-c`` compromise; ``--config`` for
 a config.sd file (readConfig, twoSD.c:152-254); checkpoints, resume, seed
 offset, metrics stream and phase times; and ``--device {cuda,cpu}``, the
-device the run uses (the CUDA card unless the CPU is asked for).  ``--mesh``
-and ``--distributed`` are parsed and refused: runs over several cards are
-not ported yet (ROADMAP A17).
+device the run uses (the CUDA card unless the CPU is asked for).
+``--mesh RxO`` runs the replications over a (rep x obs) mesh of ranks and
+``--distributed`` joins the ranks' process group first, one process per
+card (``parallel/``):
+
+    torchrun --nproc_per_node N -m stochasticdecomposition_torch.cli \
+        -p lands -m 4 --mesh 4x1 --distributed
+
+Each rank's first line names its card; only the coordinator (rank 0)
+prints the summaries and writes the result files.  With
+``--checkpoint-every``, ``--mesh`` needs a ``--checkpoint-dir`` that every
+rank reaches: each lead rank writes its replication's files there.
 
 Usage:  python -m stochasticdecomposition_torch.cli -p lands -o out/
 Built-in instances resolve without ``-i`` (e.g. ``-p lands``).  Results go
@@ -20,6 +29,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 from stochasticdecomposition_torch.config import SDConfig, load_config
 
@@ -68,9 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "optimality/argmax) for detailedResults.csv by "
                         "timing the step's pieces on the final state")
     p.add_argument("--mesh", dest="mesh", default=None, metavar="RxO",
-                   help="not ported yet (ROADMAP A17): refused")
+                   help="run replications over a (rep x obs) mesh of ranks, "
+                        "e.g. --mesh 4x1 (requires R*O <= the number of "
+                        "ranks; O > 1 only adds ranks that wait, since a "
+                        "replication's pools stay on one card)")
     p.add_argument("--distributed", dest="distributed", action="store_true",
-                   help="not ported yet (ROADMAP A17): refused")
+                   help="join the ranks' process group before building the "
+                        "mesh (coordinates from the environment: torchrun's "
+                        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK, or "
+                        "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)")
     p.add_argument("--device", dest="device", choices=["cuda", "cpu"],
                    default="cuda",
                    help="the device to run on (default: the CUDA card)")
@@ -90,11 +107,33 @@ def apply_seed_offset(cfg: SDConfig, offset: int) -> SDConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh or args.distributed:
-        print("--mesh and --distributed are not ported yet (ROADMAP A17): "
-              "replications run one after another on one device",
-              file=sys.stderr)
-        return 2
+    from stochasticdecomposition_torch.parallel.distributed import (
+        is_coordinator, maybe_initialize, process_count, process_index,
+        rank_device,
+    )
+    if args.distributed:
+        maybe_initialize()
+    mesh = None
+    if args.mesh:
+        from stochasticdecomposition_torch.parallel.mesh import make_mesh
+        try:
+            n_rep, n_obs = (int(v) for v in args.mesh.lower().split("x"))
+            mesh = make_mesh(n_rep, n_obs)
+        except ValueError as e:
+            print(f"--mesh expects RxO with R*O <= {process_count()} ranks "
+                  f"(e.g. 2x4), got {args.mesh!r}: {e}", file=sys.stderr)
+            return 2
+        if args.checkpoint_every and not args.checkpoint_dir:
+            print("--mesh with --checkpoint-every needs --checkpoint-dir, a "
+                  "directory that every rank reads and writes (a resume "
+                  "reads every rank's files)", file=sys.stderr)
+            return 2
+        if args.metrics_every or args.time_phases:
+            print("--metrics-every and --time-phases are not taken with "
+                  "--mesh: the meshed path records neither, as in the JAX "
+                  "package", file=sys.stderr)
+            args.metrics_every, args.time_phases = 0, False
+    coord = is_coordinator()
 
     cfg = load_config(args.config_path) if args.config_path else SDConfig()
     if args.eval_flag is not None:
@@ -138,13 +177,20 @@ def main(argv=None) -> int:
         return 2
 
     sp = attach_stoc(decompose(core, tim, stoc), stoc)
-    solver = SDSolver(sp, cfg, device=args.device)
+    device = rank_device(args.device)
+    if mesh is not None:
+        name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+            else "CPU"
+        print(f"rank {process_index()} of {process_count()}: {device} "
+              f"({name})", flush=True)
+    solver = SDSolver(sp, cfg, device=device)
 
     def log(s):
         sys.stdout.write(s)
         sys.stdout.flush()
 
-    print("Starting two-stage stochastic decomposition (PyTorch).")
+    if coord:
+        print("Starting two-stage stochastic decomposition (PyTorch).")
     if args.resume_from and not os.path.exists(args.resume_from):
         print(f"checkpoint not found: {args.resume_from}", file=sys.stderr)
         return 2
@@ -160,12 +206,15 @@ def main(argv=None) -> int:
             return MetricsRecorder(
                 os.path.join(out_dir, f"metrics_rep{rep:02d}.jsonl"),
                 every=args.metrics_every)
-    sdio.decompose_summary(sp, out=print)
+    if coord:
+        sdio.decompose_summary(sp, out=print)
     result = solver.run(log=log, checkpoint_every=args.checkpoint_every,
                         checkpoint_dir=ckpt_dir,
                         resume_from=args.resume_from, metrics=metrics,
-                        time_phases=args.time_phases)
+                        time_phases=args.time_phases, mesh=mesh)
     print()
+    if not coord:
+        return 0
     for r in result.replications:
         sdio.print_optimization_summary(r, cfg.MAX_ITER)
         if r.eval is not None:

@@ -75,11 +75,10 @@ def make_eval_batch(pa: ProblemArrays, spec: SamplerSpec, batch: int,
             base_for[key] = (base.basis, atup)
         return base_for[key]
 
-    def eval_batch(x, gen=None, w_raw=None):
+    def solve_lanes(x, w_raw):
+        """(objs, ok) [n] of the lanes of raw observations ``w_raw``."""
         dtype = pa.c1.dtype
         x = torch.as_tensor(x, dtype=dtype, device=pa.c1.device)
-        if w_raw is None:
-            w_raw = sample_omega(spec, gen, batch, dtype=dtype)
         w = torch.as_tensor(w_raw, dtype=dtype, device=x.device) - \
             pa.omega_mean[None]
         n = w.shape[0]
@@ -88,18 +87,32 @@ def make_eval_batch(pa: ProblemArrays, spec: SamplerSpec, batch: int,
         res = solve_lp(pa.D, pa.sense2, cost, pa.l2, pa.u2, rhs, lite=True,
                        init_basis=basis.expand(n, -1),
                        init_at_upper=atup.expand(n, -1))
-        ok = res.status == STATUS_OPTIMAL
-        objs = torch.where(ok, res.obj, 0.0)
-        n_ok = int(torch.sum(ok))
-        mean = torch.sum(objs) / max(n_ok, 1)
-        dev = torch.where(ok, objs - mean, 0.0)
         eval_batch.pivots += int(torch.sum(res.iters))
-        return float(mean), float(torch.sum(dev * dev)), n_ok, n
+        return res.obj, res.status == STATUS_OPTIMAL
+
+    def eval_batch(x, gen=None, w_raw=None):
+        if w_raw is None:
+            w_raw = sample_omega(spec, gen, batch, dtype=pa.c1.dtype)
+        objs, ok = solve_lanes(x, w_raw)
+        return (*batch_stats(objs, ok), ok.shape[0])
 
     # Pivots of the lanes, and of the mean-observation solves.
     eval_batch.pivots = 0
     eval_batch.base_pivots = 0
+    # The lanes alone, for an evaluation that splits them across ranks
+    # (parallel/mesh.make_sharded_eval).
+    eval_batch.solve_lanes = solve_lanes
     return eval_batch
+
+
+def batch_stats(objs, ok):
+    """(mean, M2, n_ok) of the optimal lanes' objectives: their mean and
+    the sum of their squared deviations from it."""
+    objs = torch.where(ok, objs, 0.0)
+    n_ok = int(torch.sum(ok))
+    mean = torch.sum(objs) / max(n_ok, 1)
+    dev = torch.where(ok, objs - mean, 0.0)
+    return float(mean), float(torch.sum(dev * dev)), n_ok
 
 
 def welford_merge(n, mean, M2, nb, mean_b, m2_b):

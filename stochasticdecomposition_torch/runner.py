@@ -13,8 +13,9 @@ the replication into feasibility mode (core/feasibility.py); under
 MASTER_TYPE 1/7 a branch-and-bound over the master's relaxations
 (core/bnb.py) makes every candidate integral.  A replication can be
 checkpointed and resumed (utils/checkpoint.py), can stream its metrics and
-estimate its phase times (utils/metrics.py).  Replications on a mesh of
-cards are not ported yet (ROADMAP A17).
+estimate its phase times (utils/metrics.py).  ``run(mesh=)`` spreads the
+replications over the ranks of a ``torch.distributed`` run, one process per
+card (parallel/).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ from stochasticdecomposition_torch.prob import (
 from stochasticdecomposition_torch.sampler import build_sampler
 from stochasticdecomposition_torch.smps import read_smps
 from stochasticdecomposition_torch.utils.checkpoint import (
-    load_checkpoint, save_state,
+    load_checkpoint, save_state, wave_path,
 )
 from stochasticdecomposition_torch.utils.metrics import estimate_phase_times
 
@@ -212,8 +213,9 @@ class SDSolver:
                           checkpoint_every: int = 0,
                           checkpoint_dir: str | None = None,
                           resume_from: str | None = None,
-                          metrics=None,
-                          time_phases: bool = False) -> ReplicationResult:
+                          metrics=None, time_phases: bool = False,
+                          wave_start: int | None = None
+                          ) -> ReplicationResult:
         """One replication to the certified stop or MAX_ITER samples.
 
         ``metrics``, if given, has its ``record(state)`` called after every
@@ -223,7 +225,11 @@ class SDSolver:
         ``checkpoint_every`` samples since the last save (elapsed k, so that
         batched strides do not skip saves), at the end of a loop pass;
         ``resume_from`` continues from such a file.  ``time_phases`` fills
-        the result's phase times (utils/metrics.estimate_phase_times)."""
+        the result's phase times (utils/metrics.estimate_phase_times).
+        ``wave_start`` (the meshed runner, parallel/runner.py) names the
+        checkpoints ``utils/checkpoint.wave_path(dir, wave_start, rep, k)``,
+        records the wave in them, and adds the replication's ``_final``
+        file when it ends."""
         cfg = self.cfg
         t0 = time.monotonic()
         gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
@@ -254,6 +260,21 @@ class SDSolver:
             master_fails = extras.get("master_fails", 0)
         t_setup = time.monotonic() - t0
         last_ckpt_k = state.k
+
+        def save(k, **extra):
+            # k None: the meshed runner's _final file.
+            if wave_start is None:
+                path = os.path.join(checkpoint_dir,
+                                    f"rep{rep:02d}_k{k:06d}.npz")
+            else:
+                path = wave_path(checkpoint_dir, wave_start, rep, k)
+                extra["wave_start"] = wave_start
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            save_state(path, state, generators=(gen, boot_gen),
+                       pool_alpha=pool_alpha, pool_beta=pool_beta,
+                       counters=dict(n_full_tests=n_full_tests,
+                                     master_failures=master_failures,
+                                     master_fails=master_fails, **extra))
 
         # LP and MILP masters have no bootstrap lower bound (fullTest aborts
         # at optimal.c:104-108): they run to MAX_ITER.  MIQP keeps the
@@ -310,15 +331,7 @@ class SDSolver:
             if checkpoint_every and checkpoint_dir and \
                     state.k - last_ckpt_k >= checkpoint_every:
                 last_ckpt_k = state.k
-                os.makedirs(checkpoint_dir, exist_ok=True)
-                save_state(
-                    os.path.join(checkpoint_dir,
-                                 f"rep{rep:02d}_k{state.k:06d}.npz"),
-                    state, generators=(gen, boot_gen),
-                    pool_alpha=pool_alpha, pool_beta=pool_beta,
-                    counters=dict(n_full_tests=n_full_tests,
-                                  master_failures=master_failures,
-                                  master_fails=master_fails))
+                save(state.k)
 
         if self.mip_master is not None:
             # The incumbent starts at the (possibly fractional) mean-value
@@ -330,10 +343,33 @@ class SDSolver:
                 state = state._replace(incumb_x=state.candid_x.clone(),
                                        incumb_est=state.candid_est.clone())
 
+        if wave_start is not None and checkpoint_every and checkpoint_dir:
+            save(None, optimal=int(optimal))
+        result = self._result(state, rep, optimal, n_full_tests,
+                              master_failures, time.monotonic() - t0, t_setup)
+        if time_phases:
+            # On copies of the final state, after the result is read: the
+            # timed pieces grow the pools of the state they are given.
+            result = dataclasses.replace(result, **estimate_phase_times(
+                self, state, iterations=state.k, lp_count=state.lp_cnt,
+                full_tests=n_full_tests, tau=cfg.TAU))
+        return result
+
+    def replication_from_file(self, path: str, rep: int) -> ReplicationResult:
+        """The result of replication ``rep`` rebuilt from its ``_final``
+        file (the meshed runner's), with times 0."""
+        state, extras = load_checkpoint(path, init_state(
+            self.pa, self.caps, self.cfg, self.mean_sol))
+        return self._result(state, rep, bool(extras["optimal"]),
+                            extras["n_full_tests"], extras["master_failures"],
+                            0.0, 0.0)
+
+    def _result(self, state, rep, optimal, n_full_tests, master_failures,
+                time_total, time_setup) -> ReplicationResult:
         check_pool_overflow(state.omega_cnt, state.lambda_cnt,
                             state.sigma_cnt, self.caps, rep)
         n_cuts = int(torch.sum(state.cut_mask))
-        result = ReplicationResult(
+        return ReplicationResult(
             rep=rep,
             iterations=state.k,
             incumb_x=state.incumb_x.cpu().numpy(),
@@ -343,8 +379,8 @@ class SDSolver:
             unique_omegas=state.omega_cnt,
             pool_sizes=dict(omega=state.omega_cnt, lam=state.lambda_cnt,
                             sigma=state.sigma_cnt, cuts=n_cuts),
-            time_total=time.monotonic() - t0,
-            time_setup=t_setup,
+            time_total=time_total,
+            time_setup=time_setup,
             quad_scalar=float(state.quad_scalar),
             cuts_active=n_cuts,
             full_tests=n_full_tests,
@@ -355,13 +391,6 @@ class SDSolver:
             feas_rounds=state.feas_cnt,
             batch_entry=batch_entry_from_state(state),
         )
-        if time_phases:
-            # On copies of the final state, after the result is read: the
-            # timed pieces grow the pools of the state they are given.
-            result = dataclasses.replace(result, **estimate_phase_times(
-                self, state, iterations=state.k, lp_count=state.lp_cnt,
-                full_tests=n_full_tests, tau=cfg.TAU))
-        return result
 
     def _mip_commit(self, state, log):
         """The integer master (MASTER_TYPE 1/7): the branch-and-bound over
@@ -408,7 +437,7 @@ class SDSolver:
     def run(self, log=lambda s: None, checkpoint_every: int = 0,
             checkpoint_dir: str | None = None,
             resume_from: str | None = None, time_phases: bool = False,
-            metrics=None) -> RunResult:
+            metrics=None, mesh=None) -> RunResult:
         """The run of ``algo()`` (algo.c:36-96): MULTIPLE_REP replications,
         each evaluated on EVAL_SEED[rep] when EVAL_FLAG is set, then with
         COMPROMISE_PROB the compromise and the average decisions, both
@@ -416,7 +445,61 @@ class SDSolver:
         0.  ``metrics`` is a recorder given every replication's states, or
         a callable ``rep -> recorder`` whose recorder takes that
         replication's states and is closed after it (the CLI's
-        ``metrics_repNN.jsonl``)."""
+        ``metrics_repNN.jsonl``).
+
+        ``mesh`` (``parallel/mesh.make_mesh``): every rank of the mesh
+        calls ``run``; the replications run in waves over its rep groups
+        (``parallel/runner.run_replications_meshed``, ``resume_from`` a
+        file of the wave to resume) and every rank returns them all.  The
+        evaluation, the compromise and the average run on the coordinator
+        only; the other ranks' ``compromise_x`` is None.  As in the JAX
+        package, the meshed path takes no metrics and no phase times, and
+        no MILP/MIQP master."""
+        cfg = self.cfg
+        coord = True
+        if mesh is not None:
+            if self.mip_master is not None:
+                raise ValueError(
+                    "MILP/MIQP masters run on the sequential path only "
+                    "(the branch-and-bound is a per-iteration host loop); "
+                    "drop --mesh")
+            if metrics is not None or time_phases:
+                raise ValueError(
+                    "the meshed path takes no metrics and no phase times")
+            from stochasticdecomposition_torch.parallel.distributed import (
+                is_coordinator,
+            )
+            from stochasticdecomposition_torch.parallel.runner import (
+                run_replications_meshed,
+            )
+            coord = is_coordinator()
+            reps = run_replications_meshed(
+                self, mesh, log=log, checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir, resume_from=resume_from)
+            if cfg.EVAL_FLAG and coord:
+                for r in reps:
+                    r.eval = self.evaluate_x(r.incumb_x, r.rep)
+        else:
+            reps = self._run_sequential(log, checkpoint_every,
+                                        checkpoint_dir, resume_from,
+                                        time_phases, metrics)
+        result = RunResult(problem=self.sp.name, replications=reps)
+
+        if cfg.COMPROMISE_PROB and len(reps) > 1 and coord:
+            entries = [r.batch_entry for r in reps]
+            # Integer mode: the reference applies MASTER_TYPE to the batch
+            # problem too (compromise.c:260).
+            solve = solve_compromise if self.mip_master is None else \
+                solve_compromise_mip
+            result.compromise_x, result.average_x = solve(self.pa, entries)
+            if cfg.EVAL_FLAG:
+                result.compromise_eval = self.evaluate_x(
+                    result.compromise_x, 0)
+                result.average_eval = self.evaluate_x(result.average_x, 0)
+        return result
+
+    def _run_sequential(self, log, checkpoint_every, checkpoint_dir,
+                        resume_from, time_phases, metrics):
         cfg = self.cfg
         per_rep = metrics is not None and not hasattr(metrics, "record")
         reps = []
@@ -434,20 +517,7 @@ class SDSolver:
             if cfg.EVAL_FLAG:
                 r.eval = self.evaluate_x(r.incumb_x, rep)
             reps.append(r)
-        result = RunResult(problem=self.sp.name, replications=reps)
-
-        if cfg.COMPROMISE_PROB and len(reps) > 1:
-            entries = [r.batch_entry for r in reps]
-            # Integer mode: the reference applies MASTER_TYPE to the batch
-            # problem too (compromise.c:260).
-            solve = solve_compromise if self.mip_master is None else \
-                solve_compromise_mip
-            result.compromise_x, result.average_x = solve(self.pa, entries)
-            if cfg.EVAL_FLAG:
-                result.compromise_eval = self.evaluate_x(
-                    result.compromise_x, 0)
-                result.average_eval = self.evaluate_x(result.average_x, 0)
-        return result
+        return reps
 
 
 def solve_smps(input_dir: str, prob_name: str,

@@ -1,8 +1,9 @@
 """SMPS (core/time/stoch) frontend.
 
 Replacement for the spAlgorithms SMPS reader used by the reference
-(``readCore/readTime/readStoc`` at twoSD.c:256-279).  Parsing happens in pure
-Python/NumPy; the result is staged into static-shape arrays by
+(``readCore/readTime/readStoc`` at twoSD.c:256-279).  The core file is
+tokenized by native C++ (``smps/native.py``), the time and stoch files in
+Python; the result is staged into static-shape arrays by
 ``stochasticdecomposition_torch.prob``.
 """
 

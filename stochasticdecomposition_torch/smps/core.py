@@ -7,7 +7,9 @@ wants static shapes and matmuls).
 
 Supported: free-format MPS with ROWS / COLUMNS / RHS / RANGES / BOUNDS
 sections, integer markers (recorded, solved as LP relaxation — the reference
-behaves the same way, setup.c:46-50), and OBJSENSE.
+behaves the same way, setup.c:46-50), and OBJSENSE.  ``read_core`` reads with
+the native C++ tokenizer (``smps/native.py``); this module's pure-Python
+parser is its reference semantics.
 """
 
 from __future__ import annotations
@@ -69,8 +71,16 @@ def _tokens(line: str) -> List[str]:
     return line.split()
 
 
-def read_core(path: str) -> CoreProblem:
-    """Parse an MPS core file with the pure-Python tokenizer."""
+def read_core(path: str, prefer_native: bool = True) -> CoreProblem:
+    """Parse an MPS core file: with the native C++ tokenizer
+    (``smps/native.py``, built with g++ at first use; raises if it cannot
+    be built), or with the pure-Python one when ``prefer_native`` is
+    False."""
+    if prefer_native:
+        from stochasticdecomposition_torch.smps.native import (
+            read_core_native,
+        )
+        return read_core_native(path)
     return _read_core_py(path)
 
 

@@ -20,7 +20,14 @@ capacities: the [L, O] delta table alone is 300 MB in f64).  The extras:
     accumulated (ray x observation) cuts, cuts.c:465-517; ``f_updt``'s
     watermarks make it unreconstructable without them);
   * ``n_full_tests``, ``master_failures``, ``master_fails``: the counters the
-    runner reports.
+    runner reports; in the meshed runner's files also ``wave_start`` and,
+    in a replication's ``_final`` file, ``optimal``.
+
+The meshed runner (``parallel/runner.py``) names its files by wave and
+replication (``wave_path``): each rank that runs a replication writes that
+replication's ``mesh_waveNN_repRR_kKKKKKK.npz`` on the sequential cadence
+and its ``mesh_waveNN_repRR_final.npz`` when it ends, NN the wave's first
+replication as in the JAX package's ``mesh_waveNN_*`` names.
 
 A checkpoint written by the JAX package (``utils/checkpoint.py`` there)
 loads too: the fields the port carries are kept, its PRNG key and JAX-only
@@ -31,6 +38,8 @@ torch, so the resumed replication's generators start from its RUN_SEED.
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -44,7 +53,8 @@ _NONE_PREFIX = _HOST_PREFIX + "none_"
 _SHAPE_PREFIX = _HOST_PREFIX + "shape_"
 _SAME_SIZE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
                   8: torch.int64}
-_COUNTERS = ("n_full_tests", "master_failures", "master_fails")
+_COUNTERS = ("n_full_tests", "master_failures", "master_fails", "wave_start",
+             "optimal")
 # The field only the JAX package's state has; it marks its checkpoints.
 _JAX_KEY = "key"
 
@@ -149,3 +159,31 @@ def load_checkpoint(path: str, like: SDState) -> Tuple[SDState, dict]:
         if _HOST_PREFIX + name in data:
             extras[name] = int(data[_HOST_PREFIX + name])
     return SDState(**kwargs), extras
+
+
+def wave_path(directory: str, wave_start: int, rep: int,
+              k: Optional[int] = None) -> str:
+    """The meshed runner's file of replication ``rep`` in the wave that
+    starts at ``wave_start``: its checkpoint at sample ``k``, or its
+    ``_final`` file when ``k`` is None."""
+    tail = "final" if k is None else f"k{k:06d}"
+    return os.path.join(directory,
+                        f"mesh_wave{wave_start:02d}_rep{rep:02d}_{tail}.npz")
+
+
+def wave_start_of(path: str) -> int:
+    """The first replication of the wave a meshed runner's file belongs to."""
+    with np.load(path) as data:
+        key = _HOST_PREFIX + "wave_start"
+        if key not in data:
+            raise ValueError(f"{path} is not a meshed runner's checkpoint")
+        return int(data[key])
+
+
+def newest_wave_checkpoint(directory: str, wave_start: int,
+                           rep: int) -> Optional[str]:
+    """The checkpoint of ``rep`` in that wave with the largest k, or None."""
+    paths = sorted(glob.glob(os.path.join(
+        glob.escape(directory),
+        f"mesh_wave{wave_start:02d}_rep{rep:02d}_k*.npz")))
+    return paths[-1] if paths else None

@@ -11,9 +11,11 @@ against the JAX package's.
   numbers masked (the "Algorithm" line names the implementation), and the
   same metrics keys.  The values differ: the draws differ.
 - ``--resume`` continues replication 0 from one of the run's checkpoints,
-  a missing resume file and an unknown problem return 2, ``--mesh`` and
-  ``--distributed`` return 2 naming ROADMAP A17, and without a card and
-  without ``--device cpu`` the run raises the port's no-CUDA error.
+  a missing resume file and an unknown problem return 2, and without a card
+  and without ``--device cpu`` the run raises the port's no-CUDA error.
+  ``--mesh 1x1`` in one process writes what the run without it writes; a
+  mesh larger than the world of ranks, or malformed, returns 2 (the runs
+  over several ranks: ``tests/test_torch_mesh.py``).
 - Behind ``--time-phases`` and the metrics stream: the phase-time estimate
   runs on copies of the final state, so a replication's result is the same
   with and without it (exact), with four phase times >= 0 instead of -1;
@@ -132,9 +134,20 @@ def test_cli_resumes_from_a_checkpoint(both_runs, tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path, capsys):
-    for extra in (["--mesh", "1x1"], ["--distributed"]):
-        assert cli.main(["-p", "lands", "-o", str(tmp_path)] + extra) == 2
-        assert "A17" in capsys.readouterr().err
+    run = ["-p", "lands", "-m", "2", "-c", "1", "--max-iter", "30", "-e",
+           "0", "--device", "cpu", "-o"]
+    assert cli.main(run + [str(tmp_path / "plain")]) == 0
+    assert cli.main(run + [str(tmp_path / "mesh"), "--mesh", "1x1"]) == 0
+    plain, mesh = (tmp_path / d / "twoSD_torch" / "lands"
+                   for d in ("plain", "mesh"))
+    assert _tree(plain) == _tree(mesh)
+    assert open(plain / "incumb.dat").read() == \
+        open(mesh / "incumb.dat").read()
+    assert _masked(plain / "summary.dat") == _masked(mesh / "summary.dat")
+    for bad in ("2x1", "2y1"):
+        assert cli.main(["-p", "lands", "-o", str(tmp_path), "--device",
+                         "cpu", "--mesh", bad]) == 2
+        assert "--mesh expects RxO" in capsys.readouterr().err
     assert cli.main(["-p", "no_such_problem", "-o", str(tmp_path),
                      "--device", "cpu"]) == 2
     if not torch.cuda.is_available():

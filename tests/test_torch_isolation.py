@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "stochasticdecomposition_tpu")
 def _port_files():
     # The card test runs on a machine without JAX.
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_argmax_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_argmax_cuda.py",
+        ROOT / "tests" / "torch_mesh_worker.py"]
 
 
 def _imported_roots(path):
@@ -33,15 +34,18 @@ def _imported_roots(path):
 
 def test_every_module_is_checked():
     """The check walks the whole package: the feasibility, random-cost,
-    branch-and-bound and compromise modules, the CLI, checkpoints and
-    metrics are among the files it reads."""
+    branch-and-bound and compromise modules, the CLI, checkpoints, metrics,
+    the runs over several ranks and the native SMPS reader are among the
+    files it reads, and so is the ranks' test worker."""
     checked = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     for mod in ("core/feasibility.py", "core/randcost.py", "core/bnb.py",
                 "core/master.py", "core/step.py", "runner.py",
                 "core/compromise.py", "cli.py", "utils/checkpoint.py",
-                "utils/metrics.py"):
+                "utils/metrics.py", "parallel/distributed.py",
+                "parallel/mesh.py", "parallel/runner.py", "smps/native.py"):
         assert mod in checked, mod
+    assert ROOT / "tests" / "torch_mesh_worker.py" in _port_files()
 
 
 @pytest.mark.parametrize("path", _port_files(),
