@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16, started
-by torchrun; see there.)
+(``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16 and
+``--obs-rank DIR`` one of phase 17, started by torchrun; see there.)
 
 Each phase prints one JSON line with its seconds; any failure exits non-zero
 (nothing is swallowed).  Phases:
@@ -24,9 +24,12 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 selected -inf, selected -1e300, NaN in unselected rows, NaN
                 and ties across split boundaries, a row tile and a split no
                 mask selects), under the default split and, at (3000, 1024),
-                under 2 and 40 S-splits and with cp.async copies: all six outputs
-                must be equal.  Timed at (7501, 5120) with random masks (the
-                full table) and with the pool prefixes: the median of 30
+                under 2 and 40 S-splits and with cp.async copies, and at one
+                obs rank's columns of the default table over 2 and 4 ranks
+                (7501, 2560), (7501, 1280) and at an odd width (7501, 2561):
+                all six outputs must be equal.  Timed at (7501, 5120) with
+                random masks (the full table), with the pool prefixes and
+                at the three shard widths: the median of 30
                 launches, each between its own CUDA events after a 512 MB
                 write that flushes L2 and a spin that keeps the card ahead
                 of the host, beside the bytes bound of the rows the masks
@@ -120,6 +123,30 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 to ``make_eval_batch`` (n_ok exact, mean within 1e-10, M2
                 within 1e-8, relative).  Seconds, launches and peak memory
                 per rank.
+ 17. pgp2like_obs2, lands_b16_obs2, spread_obs2, spread_b16_obs2 — one
+                replication's pools split over two ranks that share the
+                card (``python -m torch.distributed.run --standalone
+                --nproc_per_node 2 chip_smoke.py --obs-rank DIR``, a 1x2
+                mesh): pgp2like at the default capacities to the certified
+                stop through ``cli.main([... "--mesh", "1x2",
+                "--distributed"])``, held to phase 4; through
+                ``SDSolver.run``, each held to the same run unsharded, made
+                first in this process: lands at SAMPLE_INCREMENT 16 on the
+                default capacities (O = 5120), and the synthetic ``spread``
+                instance (SPREAD: almost every draw a new observation, so
+                that both ranks' columns fill) at MAX_ITER 300 (O = 384)
+                and at the default capacities with SAMPLE_INCREMENT 16 and
+                MIN_ITER SPREAD_B16_MIN samples (more than 2560 distinct
+                observations: rank 1's block of O = 5120 fills).  Each
+                rank: the iterations, certification, unique omegas and pool
+                sizes equal, incumbent and estimate within 1e-8 (whether
+                bit-identical is reported), launches = cuts formed, its
+                state's observation-axis bytes half the unsharded state's,
+                its seconds and peak memory, and the wall seconds and calls
+                of its obs collectives (``parallel/distributed.py``'s
+                ``obs_seconds``, ``obs_calls``), also per step;
+                pgp2like's exact gap within GAP_LIMIT and its files on rank
+                0 only.
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
 drives the path and requires, just after, as many launches as cuts formed
@@ -166,14 +193,26 @@ COMPROMISE_VIOLATION = 1e-6      # rows and bounds at the compromise
 CLI_REPS = 3
 MESH_EVAL_LANES = 192            # 64 lanes per rank
 MESH_TIMEOUT = 600               # seconds for the three ranks' run
+OBS_TIMEOUT = 600                # seconds for phase 17's two ranks
+# Almost every draw a new observation (4^7 scenarios), so that the pools of
+# a SPREAD_ITERS-sample run fill both obs blocks of a 1x2 mesh.
+SPREAD = dict(seed=4, n_rv=5, support=4, rand_C=2)
+SPREAD_ITERS = 300
+# Samples before the first stop test of spread_b16_obs2: ~3180 distinct
+# observations expected under SPREAD's probabilities, past 2560.
+SPREAD_B16_MIN = 3600
+OBS_FIELDS = ("omega_vals", "omega_w", "delta_pib", "delta_piC", "cut_istar")
 BAA_ITERS = 300
 LP_ITERS = 150
 LP_UB_LIMIT = 0.02               # LP-master UB against the optimum
 MIQP_LIMIT = 0.01                # MIQP incumbent against the integer optimum
 STOCH_CHECK_OBS = 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+# The last four: the full table and one rank's columns of it over 2 and 4
+# obs ranks, and a shard width that splits oddly (8-byte cp.async rows).
+SHARD_SHAPES = [(7501, 2560), (7501, 1280), (7501, 2561)]
 ARGMAX_SHAPES = [(37, 128), (300, 256), (3000, 1024), (1001, 777),
-                 (7501, 5120)]
+                 *SHARD_SHAPES, (7501, 5120)]
 PREFIXES = (64, 512)             # pool-prefix cases, rows selected
 TIMED_REPS = 30
 FLUSH_BYTES = 512 * 2 ** 20      # > the 50 MB L2; keeps the card ahead
@@ -349,23 +388,29 @@ def phase_kernel(dev):
     S, O = ARGMAX_SHAPES[-1]
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     H = torch.as_tensor(rng.standard_normal((S, O)), device=dev)
-    timed = {"full": argmax_cases.random_masks(rng, S)}
-    for n in PREFIXES:
-        timed[f"prefix{n}"] = list(argmax_cases.prefix_masks(S, n))
+    full = argmax_cases.random_masks(rng, S)
+    # (name, columns, masks): the full table, its pool prefixes, and one
+    # obs rank's columns of it under the same masks.
+    timed = [("full", O, full)]
+    timed += [(f"prefix{n}", O, list(argmax_cases.prefix_masks(S, n)))
+              for n in PREFIXES]
+    timed += [(f"shard{w}", w, full) for _, w in SHARD_SHAPES]
     out = {"cases": checked, "shape": [S, O], "max_abs_err": max_err,
            "plan": argmax.split_plan(S, O)._asdict(), "timed": {}}
-    for name, np_masks in timed.items():
-        b_ms, nbytes, n_sel = bound_ms(np_masks, O)
+    for name, cols, np_masks in timed:
+        Hc = H if cols == O else H[:, :cols].contiguous()
+        b_ms, nbytes, n_sel = bound_ms(np_masks, cols)
         masks = [torch.as_tensor(m, device=dev) for m in np_masks]
-        ms = cuda_ms(lambda: argmax.triple_masked_argmax(H, *masks),
+        ms = cuda_ms(lambda: argmax.triple_masked_argmax(Hc, *masks),
                      TIMED_REPS, flush)
         row = {"n_sel": n_sel, "ms": ms, "bound_ms": b_ms, "bytes": nbytes,
                "GBps": nbytes / (ms * 1e-3) / 1e9,
                "bound_share": b_ms / ms}
-        if name == "full":
+        if not name.startswith("prefix"):
             row["plain_ms"] = cuda_ms(
-                lambda: argmax.triple_masked_argmax_plain(H, *masks),
+                lambda: argmax.triple_masked_argmax_plain(Hc, *masks),
                 TIMED_REPS, flush)
+        if name == "full":
             row["profiler_ms"] = profiler_ms(
                 lambda: argmax.triple_masked_argmax(H, *masks), 10, flush)
         out["timed"][name] = row
@@ -394,8 +439,9 @@ def load_problem(name):
     from stochasticdecomposition_torch.models.synthetic import parse_synthetic
     from stochasticdecomposition_torch.prob import attach_stoc, decompose
 
-    if name == "randc":
-        core, tim, stoc = parse_synthetic(**RANDC)
+    if name in ("randc", "spread"):
+        core, tim, stoc = parse_synthetic(**(RANDC if name == "randc"
+                                             else SPREAD))
     else:
         load = load_instance if name in INSTANCES else load_suite_instance
         core, tim, stoc = load(name)
@@ -988,6 +1034,218 @@ def mesh_rank(root):
         json.dump(out, fh)
 
 
+def torchrun(phase, flag, root, nproc, timeout):
+    """``chip_smoke.py <flag> root`` as ``nproc`` ranks under
+    ``python -m torch.distributed.run --standalone``, killed with its ranks
+    at ``timeout`` seconds; fails the phase unless every rank ends well.
+    Returns (the ranks' log, seconds, each rank's ``root/rankR.json``)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), flag,
+           root]
+    log_path = os.path.join(root, "torchrun.log")
+    t = time.monotonic()
+    with open(log_path, "w") as log:
+        # Its own session, so that a timeout kills the ranks too.
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    seconds = time.monotonic() - t
+    text = open(log_path).read()
+    if rc != 0:
+        fail(f"{phase}: torchrun exited {rc}:\n{text[-6000:]}")
+    return text, seconds, [
+        json.load(open(os.path.join(root, f"rank{r}.json")))
+        for r in range(nproc)]
+
+
+def obs_bytes(state) -> int:
+    """The bytes of the state's five observation-axis fields."""
+    return sum(getattr(state, f).nbytes for f in OBS_FIELDS)
+
+
+def rep_fields(r) -> dict:
+    return {"rep": r.rep, "iterations": r.iterations, "optimal": r.optimal,
+            "unique_omegas": r.unique_omegas, "pool_sizes": r.pool_sizes,
+            "incumb_x": r.incumb_x.tolist(), "incumb_est": r.incumb_est,
+            "cuts_formed": r.cuts_formed, "sd_seconds": r.time_total}
+
+
+def obs2_runs():
+    """Phase 17's runs through ``SDSolver.run`` (the third, pgp2like, goes
+    through the CLI): (phase, instance, config)."""
+    from stochasticdecomposition_torch.config import SDConfig
+
+    return [("lands_b16_obs2", "lands",
+             SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=16)),
+            ("spread_obs2", "spread",
+             SDConfig(EVAL_FLAG=False, MAX_ITER=SPREAD_ITERS)),
+            ("spread_b16_obs2", "spread",
+             SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=16,
+                      MIN_ITER=SPREAD_B16_MIN))]
+
+
+def obs_rank(root):
+    """One rank of phase 17 (started by torchrun): pgp2like through the CLI
+    on a 1x2 mesh, then ``obs2_runs`` through ``SDSolver.run`` on a 1x2
+    mesh; for each, this rank's launches, the bytes of its state's
+    observation-axis fields, ``estimate_pool_bytes`` for the rank, its
+    peak memory, its obs collectives' wall seconds and calls, and the
+    results.  Writes ``root/rankR.json``."""
+    from stochasticdecomposition_torch import cli, runner
+    from stochasticdecomposition_torch.core.state import estimate_pool_bytes
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.parallel import distributed
+    from stochasticdecomposition_torch.parallel.mesh import make_mesh
+
+    rank = int(os.environ["RANK"])
+    held = []
+    init = runner.init_state
+
+    def recorded(*a, **kw):
+        st = init(*a, **kw)
+        held.append((obs_bytes(st), [st.shard.lo, st.shard.hi]))
+        return st
+
+    seen = {}
+    run = runner.SDSolver.run
+
+    def kept_run(self, *a, **kw):
+        seen["solver"] = self
+        seen["run"] = run(self, *a, **kw)
+        return seen["run"]
+
+    def measured(fn):
+        held.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        argmax.launches = 0
+        distributed.obs_seconds, distributed.obs_calls = 0.0, 0
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        res = seen["run"].replications[0]
+        sol = seen["solver"]
+        steps = -(-res.iterations // max(1, sol.cfg.SAMPLE_INCREMENT))
+        return {"seconds": time.monotonic() - t, "launches": argmax.launches,
+                "steps": steps, "obs_seconds": distributed.obs_seconds,
+                "obs_calls": distributed.obs_calls,
+                "obs_seconds_per_step": distributed.obs_seconds / steps,
+                "obs_share_of_sd": distributed.obs_seconds / res.time_total,
+                "obs_bytes": held[0][0], "shard": held[0][1],
+                "estimated_pool_bytes": estimate_pool_bytes(
+                    sol.sp, sol.caps, sol.cfg, 2)["total"],
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                **rep_fields(res)}
+
+    out = {"rank": rank}
+    with swapped(runner, "init_state", recorded), \
+            swapped(runner.SDSolver, "run", kept_run):
+        rc = []
+        out["pgp2like_obs2"] = measured(lambda: rc.append(cli.main(
+            ["-p", "pgp2like", "-e", "0", "--mesh", "1x2", "--distributed",
+             "-o", os.path.join(root, f"rank{rank}")])))
+        out["pgp2like_obs2"]["rc"] = rc[0]
+        dev = seen["solver"].device
+        for phase, name, cfg in obs2_runs():
+            solver = runner.SDSolver(load_problem(name), cfg, device=dev)
+            out[phase] = measured(lambda: solver.run(mesh=make_mesh(1, 2)))
+    out["device"] = str(dev)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def phase_obs2(dev, pgp_solver, pgp_res):
+    """Phase 17: one replication's pools split over two ranks that share
+    the card (``--mesh 1x2``): pgp2like at the default capacities through
+    the CLI, held to phase 4's replication ``pgp_res``; lands at
+    SAMPLE_INCREMENT 16 and ``spread`` at batch 1 and 16 (whose
+    observations fill both ranks' columns) through ``SDSolver.run``, held
+    to the same runs unsharded, made here first.  Returns {phase:
+    fields}."""
+    from stochasticdecomposition_torch.core.state import init_state
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.runner import SDSolver
+
+    want, ref = {"pgp2like_obs2": pgp_res}, {}
+    st = init_state(pgp_solver.pa, pgp_solver.caps, pgp_solver.cfg,
+                    pgp_solver.mean_sol)
+    whole = {"pgp2like_obs2": obs_bytes(st)}
+    del st
+    for phase, name, cfg in obs2_runs():
+        solver = SDSolver(load_problem(name), cfg, device=dev)
+        st = init_state(solver.pa, solver.caps, cfg, solver.mean_sol)
+        whole[phase] = obs_bytes(st)
+        del st
+        argmax.launches = 0
+        res = solver.run().replications[0]
+        torch.cuda.synchronize()
+        if argmax.launches != res.cuts_formed:
+            fail(f"{phase}: {argmax.launches} launches for "
+                 f"{res.cuts_formed} cuts in the unsharded run")
+        want[phase] = res
+        ref[phase] = {"launches": argmax.launches, **rep_fields(res)}
+
+    with tempfile.TemporaryDirectory() as root:
+        text, seconds, ranks = torchrun("obs2", "--obs-rank", root, 2,
+                                        OBS_TIMEOUT)
+        files = sorted(os.listdir(os.path.join(
+            root, "rank0", "twoSD_torch", "pgp2like")))
+        rank1_files = os.path.exists(os.path.join(root, "rank1"))
+    card = torch.cuda.get_device_name(dev)
+    out = {}
+    for phase, w in want.items():
+        rows = [rk[phase] for rk in ranks]
+        problems = []
+        for r, g in enumerate(rows):
+            if (g["iterations"], g["optimal"], g["unique_omegas"],
+                    g["pool_sizes"]) != (w.iterations, w.optimal,
+                                         w.unique_omegas, w.pool_sizes) or \
+                    not within(g["incumb_x"], w.incumb_x, 1e-8) or \
+                    not within(g["incumb_est"], w.incumb_est, 1e-8):
+                problems.append(f"rank {r}: the replication differs from "
+                                f"the unsharded run ({g} vs {w})")
+            if g["launches"] != g["cuts_formed"] or g["launches"] <= 0:
+                problems.append(f"rank {r}: {g['launches']} launches for "
+                                f"{g['cuts_formed']} cuts")
+            if 2 * g["obs_bytes"] != whole[phase]:
+                problems.append(f"rank {r}: {g['obs_bytes']} bytes of "
+                                f"observation columns, not half of "
+                                f"{whole[phase]}")
+            if f"rank {r} of 2: {ranks[r]['device']} ({card})" not in text \
+                    and phase == "pgp2like_obs2":
+                problems.append(f"rank {r} did not name its card")
+        if phase == "pgp2like_obs2":
+            if any(g["rc"] != 0 for g in rows) or rank1_files or \
+                    "incumb.dat" not in files:
+                problems.append(f"the CLI's files: {files}")
+            exact, opt, gap = exact_check(pgp_solver, "pgp2like",
+                                          np.asarray(rows[0]["incumb_x"]))
+            out[phase] = {"exact_objective": exact, "optimum": opt,
+                          "exact_gap": gap}
+            if gap > GAP_LIMIT:
+                problems.append(f"exact gap {gap}")
+        else:
+            out[phase] = {"unsharded": ref[phase]}
+            if phase.startswith("spread") and \
+                    w.unique_omegas <= rows[0]["shard"][1]:
+                problems.append(f"{w.unique_omegas} observations fill only "
+                                f"rank 0's columns {rows[0]['shard']}")
+        out[phase].update(
+            ranks=rows, unsharded_obs_bytes=whole[phase],
+            bit_identical=all(g["incumb_x"] == w.incumb_x.tolist() and
+                              g["incumb_est"] == w.incumb_est
+                              for g in rows))
+        if problems:
+            fail(f"{phase}: {problems}")
+    out["obs2_torchrun_seconds"] = seconds
+    return out
+
+
 def within(a, b, rtol) -> bool:
     return bool(np.allclose(a, b, rtol=rtol, atol=rtol))
 
@@ -997,28 +1255,9 @@ def phase_cli_mesh(dev, seq):
     held against ``seq``, phase 15's RunResult."""
     out = {"ranks": []}
     with tempfile.TemporaryDirectory() as root:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", str(CLI_REPS),
-               os.path.abspath(__file__), "--mesh-rank", root]
-        log_path = os.path.join(root, "torchrun.log")
-        t = time.monotonic()
-        with open(log_path, "w") as log:
-            # Its own session, so that a timeout kills the ranks too.
-            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                    start_new_session=True)
-            try:
-                rc = proc.wait(timeout=MESH_TIMEOUT)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-                rc = "timeout"
-        out["seconds_torchrun"] = time.monotonic() - t
-        text = open(log_path).read()
-        if rc != 0:
-            fail(f"cli_pgp2like_m3_mesh: torchrun exited {rc}:\n"
-                 f"{text[-6000:]}")
-        ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
-                 for r in range(CLI_REPS)]
+        text, out["seconds_torchrun"], ranks = torchrun(
+            "cli_pgp2like_m3_mesh", "--mesh-rank", root, CLI_REPS,
+            MESH_TIMEOUT)
         written = {r: os.path.isdir(os.path.join(root, f"rank{r}",
                                                  "twoSD_torch"))
                    for r in range(CLI_REPS)}
@@ -1319,8 +1558,8 @@ def main() -> None:
     emit({"phase": "lands", **out, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    out, _, _, _ = phase_to_stop("pgp2like", dev, SDConfig(EVAL_FLAG=False),
-                                 flush)
+    out, pgp_solver, pgp_res, _ = phase_to_stop(
+        "pgp2like", dev, SDConfig(EVAL_FLAG=False), flush)
     launches["pgp2like"] = out["launches"]
     emit({"phase": "pgp2like", **out, "seconds": time.monotonic() - t})
 
@@ -1447,6 +1686,17 @@ def main() -> None:
     emit({"phase": "cli_pgp2like_m3_mesh", **out,
           "seconds": time.monotonic() - t})
 
+    t = time.monotonic()
+    outs = phase_obs2(dev, pgp_solver, pgp_res)
+    torchrun_s = outs.pop("obs2_torchrun_seconds")
+    for phase, out in outs.items():
+        if "unsharded" in out:
+            launches[phase + "_unsharded"] = out["unsharded"]["launches"]
+        for r, row in enumerate(out["ranks"]):
+            launches[f"{phase}_rank{r}"] = row["launches"]
+        emit({"phase": phase, **out, "torchrun_seconds": torchrun_s})
+    emit({"phase": "obs2", "seconds": time.monotonic() - t})
+
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
     print(smi, flush=True)
     full = kern["timed"]["full"]
@@ -1463,7 +1713,10 @@ def main() -> None:
         "prefix_ms": {str(n): kern["timed"][f"prefix{n}"]["ms"]
                       for n in PREFIXES},
         "prefix_bound_ms": {str(n): kern["timed"][f"prefix{n}"]["bound_ms"]
-                            for n in PREFIXES}}]})
+                            for n in PREFIXES},
+        "shard": {f"{S}x{w}": {k: kern["timed"][f"shard{w}"][k]
+                               for k in ("ms", "plain_ms", "bound_ms")}
+                  for S, w in SHARD_SHAPES}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1472,5 +1725,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--obs-rank"]:
+        obs_rank(sys.argv[2])
     else:
         main()

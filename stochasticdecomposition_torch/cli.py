@@ -9,15 +9,20 @@ offset, metrics stream and phase times; and ``--device {cuda,cpu}``, the
 device the run uses (the CUDA card unless the CPU is asked for).
 ``--mesh RxO`` runs the replications over a (rep x obs) mesh of ranks and
 ``--distributed`` joins the ranks' process group first, one process per
-card (``parallel/``):
+card (``parallel/``): R replications at a time, each on O ranks that split
+its observation columns (its omega pool, delta tables and cut iStar
+records) between them and step it in lockstep:
 
     torchrun --nproc_per_node N -m stochasticdecomposition_torch.cli \
         -p lands -m 4 --mesh 4x1 --distributed
+    torchrun --nproc_per_node 2 -m stochasticdecomposition_torch.cli \
+        -p pgp2like --mesh 1x2 --distributed
 
 Each rank's first line names its card; only the coordinator (rank 0)
 prints the summaries and writes the result files.  With
-``--checkpoint-every``, ``--mesh`` needs a ``--checkpoint-dir`` that every
-rank reaches: each lead rank writes its replication's files there.
+``--checkpoint-every``, ``--mesh`` needs an O of 1 and a
+``--checkpoint-dir`` that every rank reaches: each rank that runs a
+replication writes its files there.
 
 Usage:  python -m stochasticdecomposition_torch.cli -p lands -o out/
 Built-in instances resolve without ``-i`` (e.g. ``-p lands``).  Results go
@@ -80,9 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "timing the step's pieces on the final state")
     p.add_argument("--mesh", dest="mesh", default=None, metavar="RxO",
                    help="run replications over a (rep x obs) mesh of ranks, "
-                        "e.g. --mesh 4x1 (requires R*O <= the number of "
-                        "ranks; O > 1 only adds ranks that wait, since a "
-                        "replication's pools stay on one card)")
+                        "e.g. --mesh 4x1 or 1x2 (requires R*O <= the number "
+                        "of ranks): R replications at a time, each split "
+                        "over O ranks by its observation columns (O must "
+                        "divide the omega capacity; no checkpoints and no "
+                        "random costs with O > 1)")
     p.add_argument("--distributed", dest="distributed", action="store_true",
                    help="join the ranks' process group before building the "
                         "mesh (coordinates from the environment: torchrun's "

@@ -7,6 +7,13 @@ kernel on the card) feeds the weighted accumulation of (alpha, beta)
 (SDCut, cuts.c:91-194).  Also: cut heights (cuts.c:197-227), the
 dual-stability ratio (cuts.c:112-128,171-182) and cut-pool management
 (addCut2Pool / reduceCuts, cuts.c:261-360,610-661).
+
+On a state sharded over obs ranks (``SDState.shard``) each rank builds the
+height table over its own observation columns and launches the kernel on
+that [S, O / n_obs] block; the cut's sums over observations (alpha, beta,
+the dual-stability sums, the count of observations without a vertex) are
+each rank's partial sums, added over the ranks in one collective, and the
+cut pool stores each rank's own columns of iStar.
 """
 
 from __future__ import annotations
@@ -16,18 +23,22 @@ from typing import NamedTuple
 
 import torch
 
-from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+from stochasticdecomposition_torch.core.state import (
+    ProblemArrays, SDState, obs_range,
+)
 from stochasticdecomposition_torch.ops.argmax import triple_masked_argmax
+from stochasticdecomposition_torch.parallel.distributed import obs_sum
 
 _NEG = -1e300
 
 
 def height_table(pa: ProblemArrays, state: SDState, x):
     """H[s, o] = sigma.pib + delta.pib - (sigma.piC)'x - (delta.piC)'x
-    for every stored dual vertex s and observation o, plus validity masks
-    (the argmax kernel of computeIstar, stocUpdate.c:161-184)."""
+    for every stored dual vertex s and observation o of this state's
+    columns, plus validity masks (the argmax kernel of computeIstar,
+    stocUpdate.c:161-184)."""
     S = state.sigma_pib.shape[0]
-    O = state.delta_pib.shape[1]
+    lo, hi, _ = obs_range(state)
     dev = x.device
     if pa.C_cols.shape[0]:
         piCbarX = state.sigma_piC @ x[pa.C_cols]
@@ -39,20 +50,21 @@ def height_table(pa: ProblemArrays, state: SDState, x):
         H = H - state.delta_piC[state.sigma_lidx] @ x[pa.C_cols_rand]
     s_valid = (torch.arange(S, device=dev) < state.sigma_cnt) & \
         state.sigma_feas                                          # feasFlag
-    o_valid = torch.arange(O, device=dev) < state.omega_cnt
+    o_valid = torch.arange(lo, hi, device=dev) < state.omega_cnt
     return H, s_valid, o_valid
 
 
 class CutParts(NamedTuple):
     alpha: torch.Tensor       # scalar
     beta: torch.Tensor        # [n1]
-    istar: torch.Tensor       # [O] int64
+    istar: torch.Tensor       # [O] int64 (this state's columns)
     height: torch.Tensor      # [O] argmax height per observation
     found: bool               # every active obs had a valid vertex
 
 
 def accumulate(pa: ProblemArrays, state: SDState, istar, o_valid, k: int):
-    """Weighted (alpha, beta) sums over observations (cuts.c:160-168,184-188)."""
+    """Weighted (alpha, beta) sums over this state's observations
+    (cuts.c:160-168,184-188)."""
     n1 = pa.c1.shape[0]
     dtype = state.sigma_pib.dtype
     w = torch.where(o_valid, state.omega_w, 0).to(dtype)
@@ -108,6 +120,8 @@ def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
     i_all, h_all, i_old, h_old, i_new, h_new, o_valid = argmax(
         pa, state, x, ns_eff)
 
+    # The sums over observations first, in one collective when sharded.
+    sums = []
     if dual_stability:
         # pi_eval gate (cuts.c:112-113): every PI_CYCLE iters past the start.
         pi_eval = k > pi_eval_start and (pi_cycle <= 1 or k % pi_cycle == 0)
@@ -120,8 +134,22 @@ def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
         h_split = torch.maximum(h_old, h_new)
 
         w = torch.where(o_valid, state.omega_w, 0).to(dtype)
-        cumm_old = torch.sum(w * torch.clamp(h_old - pa.lb, min=0.0))
-        cumm_all = torch.sum(w * torch.clamp(h_split - pa.lb, min=0.0))
+        sums = [torch.sum(w * torch.clamp(h_old - pa.lb, min=0.0)),
+                torch.sum(w * torch.clamp(h_split - pa.lb, min=0.0))]
+    else:
+        istar, hstar = i_all, h_all
+    alpha, beta = accumulate(pa, state, istar, o_valid, k)
+    missing = torch.sum(o_valid & ~(hstar > _NEG / 2))
+    if state.shard is not None:
+        total = obs_sum(torch.cat([alpha[None], beta, *(v[None] for v in sums),
+                                   missing[None].to(dtype)]), state.shard)
+        n1 = beta.shape[0]
+        alpha, beta, missing = total[0], total[1:1 + n1], total[-1]
+        sums = list(total[1 + n1:-1])
+    found = bool(missing == 0)
+
+    if dual_stability:
+        cumm_old, cumm_all = sums
         ratio = torch.where(cumm_all == 0.0, 1.0,
                             cumm_old / torch.where(cumm_all == 0.0, 1.0,
                                                    cumm_all))
@@ -142,11 +170,7 @@ def form_cut(pa: ProblemArrays, state: SDState, x, k: int, *,
                 variance = 1.0
             stable = not (abs(variance) >= 2e-6 or float(ratio) < 0.95)
             state = state._replace(dual_stable=stable)
-    else:
-        istar, hstar = i_all, h_all
 
-    alpha, beta = accumulate(pa, state, istar, o_valid, k)
-    found = bool(torch.all(~o_valid | (hstar > _NEG / 2)))
     return CutParts(alpha=alpha, beta=beta, istar=istar, height=hstar,
                     found=found), state
 

@@ -12,7 +12,10 @@ and subproblem solves alternate until the candidate is feasible
 The port of the JAX package's ``core/feasibility.py``: a rare,
 control-flow-heavy path that runs on the host with numpy, over the few
 (ray, observation) pairs gathered on the device, and calls the step's
-substeps (core/step.py::make_substeps) for the solves.
+substeps (core/step.py::make_substeps) for the solves.  On a state
+sharded over obs ranks each rank reads the pairs' delta entries in its own
+observation columns, and a sum over the ranks of the zero-padded entries
+gives every rank all of them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import numpy as np
 import torch
 
 from stochasticdecomposition_torch.config import SDConfig
-from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+from stochasticdecomposition_torch.core.state import (
+    ProblemArrays, SDState, obs_range,
+)
+from stochasticdecomposition_torch.parallel.distributed import obs_sum
 
 MAX_FEAS_ROUNDS = 200   # master/subproblem rounds before feasibility mode fails
 
@@ -63,14 +69,20 @@ def update_feas_cut_pool(pa: ProblemArrays, state: SDState, cfg: SDConfig,
     ps = torch.as_tensor(pairs_s, device=dev)
     po = torch.as_tensor(pairs_o, device=dev)
     lidx = state.sigma_lidx[ps]
-    alpha = (state.sigma_pib[ps] + state.delta_pib[lidx, po]).cpu().numpy()
+    # The pairs' delta entries in this state's columns, zeros elsewhere.
+    lo, hi, _ = obs_range(state)
+    mine = (po >= lo) & (po < hi)
+    col = torch.where(mine, po - lo, 0)
+    d = torch.cat([state.delta_pib[lidx, col][:, None],
+                   state.delta_piC[lidx, col]], dim=1)
+    d = obs_sum(torch.where(mine[:, None], d, 0.0), state.shard)
+    alpha = (state.sigma_pib[ps] + d[:, 0]).cpu().numpy()
     beta = np.zeros((len(pairs_s), n1))
     C_cols = pa.C_cols.cpu().numpy()
     if C_cols.size:
         beta[:, C_cols] += state.sigma_piC[ps].cpu().numpy()
     if pa.rv_C_rows.shape[0] and pa.C_cols_rand.shape[0]:
-        beta[:, pa.C_cols_rand.cpu().numpy()] += \
-            state.delta_piC[lidx, po].cpu().numpy()
+        beta[:, pa.C_cols_rand.cpu().numpy()] += d[:, 1:].cpu().numpy()
 
     # Tolerance-quantized dedup, within the batch and against the pool.
     keys = np.round(np.concatenate([alpha[:, None], beta], axis=1) / tol)

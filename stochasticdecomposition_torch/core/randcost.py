@@ -282,11 +282,12 @@ def accumulate_randcost(pa: ProblemArrays, state: SDState, istar, o_valid,
     return alpha, beta / k
 
 
-def reform_cuts_randcost(pa: ProblemArrays, state: SDState, counts):
+def reform_sums_randcost(pa: ProblemArrays, state: SDState, counts):
     """reformCuts (optimal.c:187-236) with the cost multipliers: every
     cut's (alpha, beta) under each row of resampled observation counts
-    [R, O], from its stored per-observation basis indices; returns
-    (alpha [R, K], beta [R, K, n1])."""
+    [R, O], from its stored per-observation basis indices, before the lb
+    correction (``stopping.with_lb``); returns (alpha [R, K],
+    beta [R, K, n1], the counted observations known to each cut [R, K])."""
     K, O = state.cut_istar.shape
     n1 = pa.c1.shape[0]
     dtype, dev = pa.c1.dtype, pa.c1.device
@@ -321,8 +322,4 @@ def reform_cuts_randcost(pa: ProblemArrays, state: SDState, counts):
             state.delta_piC[l0, o_ids[None, :]] + torch.einsum(
                 "kon,konc->koc", mult,
                 state.delta_piC[ln, o_ids[None, :, None]]))
-    beta = beta / kf
-
-    count = cnt @ valid.T                                         # [R, K]
-    alpha = alpha + (1.0 - count / kf) * pa.lb
-    return alpha, beta
+    return alpha, beta / kf, cnt @ valid.T

@@ -7,7 +7,11 @@ run's device with a count, the same capacities as the JAX package, so the
 per-iteration work runs over the full pools whatever their occupancy.
 
 Counts and flags that the host loop branches on are plain Python numbers;
-pools and iterates are tensors.  The state is a NamedTuple, updated with
+pools and iterates are tensors.  A replication sharded over the obs ranks
+of a mesh (``parallel/mesh.py``) holds only its block of the observation
+axis of ``omega_vals``, ``omega_w``, ``delta_pib``, ``delta_piC`` and
+``cut_istar`` (``SDState.shard``, ``obs_range``); the counts, such as
+``omega_cnt``, stay global.  The state is a NamedTuple, updated with
 ``_replace``; pool writes are made in place on the state's tensors (the
 pools are the large part of device memory, so they are never copied).
 """
@@ -163,6 +167,16 @@ class SDState(NamedTuple):
     cut_cnt: int = 0            # SD cuts formed (triple argmax calls)
     lane_iters: torch.Tensor | None = None  # [B] pivots of the last
     #                             batched subproblem solve, per lane
+    shard: "ObsShard | None" = None  # this rank's observation columns
+    #                             (parallel/distributed.ObsShard); None: all
+
+
+def obs_range(state: SDState) -> tuple:
+    """(lo, hi, O): the global observation columns [lo, hi) this state
+    holds, of O in all (the whole axis unless it is sharded)."""
+    n = state.omega_w.shape[0]
+    sh = state.shard
+    return (0, n, n) if sh is None else (sh.lo, sh.hi, n * sh.n_obs)
 
 
 def _t(a, dtype, device):
@@ -241,11 +255,14 @@ def derive_capacities(sp: StagedProblem, cfg: SDConfig) -> Capacities:
 
 
 def estimate_pool_bytes(sp: StagedProblem, caps: Capacities,
-                        cfg: SDConfig) -> dict:
-    """Static-pool memory breakdown (bytes) at the derived capacities.
+                        cfg: SDConfig, n_obs: int = 1) -> dict:
+    """Static-pool memory breakdown (bytes) of one rank at the derived
+    capacities, its observation axis split over ``n_obs`` ranks.
 
-    delta is [L, O], so at MAX_ITER=5000 it alone is ~307 MB in f64 (and
-    the [L, O, nCr] C-part as much again per random C column)."""
+    delta is [L, O], so at MAX_ITER=5000 it alone is ~307 MB in f64, and
+    the [L, O, nCr] C-part as much again per random C column, or once
+    without random technology (its [L, O, 1] placeholder).  The full
+    test's weights are [O] f64 on every rank, for the whole of O."""
     rv = sp.rv
     n1 = sp.first.A.shape[1]
     m2, n2 = sp.second.D.shape
@@ -254,16 +271,18 @@ def estimate_pool_bytes(sp: StagedProblem, caps: Capacities,
     nCc = max(len(rv.C_cols), 1)
     nCr = max(len(np.unique(rv.rv_C_cols)) if rv.nC else 0, 1)
     nd = rv.nd
-    O, L, S, K, F, B = caps.O, caps.L, caps.S, caps.K, caps.F, caps.B
+    L, S, K, F, B = caps.L, caps.S, caps.K, caps.F, caps.B
+    O = caps.O // n_obs                 # this rank's columns
     fb = 8 if cfg.DTYPE == "float64" else 4
 
     out = {
-        "omega": O * R * fb + O * 4,
+        "omega": O * R * fb + O * 8,
         "lambda": L * nlr * fb,
         "sigma": S * (1 + nCc) * fb + S * 9,
         "delta_pib": L * O * fb,
-        "delta_piC": L * O * nCr * fb if rv.nC else 0,
-        "cuts": K * (O * 4 + n1 * fb + fb + 8) + F * (n1 + 1) * fb,
+        "delta_piC": L * O * nCr * fb,
+        "cuts": K * (O * 8 + n1 * fb + fb + 8) + F * (n1 + 1) * fb,
+        "bootstrap_weights": caps.O * 8,
     }
     if nd > 0:
         out["basis_phi"] = B * nd * m2 * fb
@@ -274,8 +293,10 @@ def estimate_pool_bytes(sp: StagedProblem, caps: Capacities,
 
 
 def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
-               x0) -> SDState:
-    """Fresh replication state (newCell, setup.c:67-186 / cleanCellType)."""
+               x0, shard=None) -> SDState:
+    """Fresh replication state (newCell, setup.c:67-186 / cleanCellType);
+    with ``shard`` (``parallel/distributed.ObsShard``) the observation
+    axis holds that shard's columns only."""
     dtype = pa.c1.dtype
     dev = pa.c1.device
     n1 = pa.c1.shape[0]
@@ -284,6 +305,8 @@ def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
     nCc = pa.C_cols.shape[0]
     nCr = pa.C_cols_rand.shape[0] if pa.C_cols_rand.shape[0] else 1
     O, L, S, K, F, B = caps.O, caps.L, caps.S, caps.K, caps.F, caps.B
+    if shard is not None:
+        O = shard.hi - shard.lo
     m2, n2 = pa.D.shape
     # The basis pool's inner widths collapse to 1 without random costs.
     rand_d = pa.rv_d_cols.shape[0] > 0
@@ -335,4 +358,5 @@ def init_state(pa: ProblemArrays, caps: Capacities, cfg: SDConfig,
         feas_cnt=0, master_ok=True, cut_ok=True,
         warm_basis=torch.arange(n2, n2 + m2, dtype=i64, device=dev),
         warm_atup=z(n2 + m2, dt=torch.bool),
+        shard=shard,
     )

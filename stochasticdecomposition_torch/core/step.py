@@ -5,7 +5,11 @@ draw observation -> dedup -> candidate subproblem + stochastic updates +
 candidate cut -> incumbent cut every TAU -> incumbent-improvement check ->
 regularized QP master.  The port of the JAX package's
 ``core/step.py::make_step``, batch 1 and batched, with CHECK_EVERY steps per
-call; the host reads back the few scalars each decision needs.
+call; the host reads back the few scalars each decision needs.  A state
+sharded over obs ranks (``SDState.shard``) steps the same way on every rank
+of its group: the observations a step solves at come from the ranks that
+store them (``core/update.omega_rows``), and the modules below combine the
+ranks' columns.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from stochasticdecomposition_torch.core.master import (
     build_and_solve_master, build_and_solve_master_lp,
 )
 from stochasticdecomposition_torch.core.randcost import (
-    accumulate_randcost, cut_argmax_randcost, reform_cuts_randcost,
+    accumulate_randcost, cut_argmax_randcost, reform_sums_randcost,
     stochastic_updates_randcost, stochastic_updates_randcost_batch,
 )
-from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
-from stochasticdecomposition_torch.core.stopping import reform_cuts
+from stochasticdecomposition_torch.core.state import (
+    ProblemArrays, SDState, obs_range,
+)
+from stochasticdecomposition_torch.core.stopping import reform_sums
 from stochasticdecomposition_torch.core.update import (
-    calc_omega, calc_omega_batch, stochastic_updates,
+    calc_omega, calc_omega_batch, omega_row, omega_rows, stochastic_updates,
     stochastic_updates_batch, subproblem_rhs_cost_lanes,
     warm_solve_subproblem,
 )
@@ -49,7 +55,7 @@ class Path(NamedTuple):
     updates_batch: Callable   # ... for B results with a lane axis
     argmax: Callable          # computeIstar's three masked argmaxes
     accumulate: Callable      # the cut's (alpha, beta)
-    reform: Callable          # reformCuts for the bootstrap
+    reform: Callable          # reformCuts' sums for the bootstrap
 
 
 def problem_path(pa: ProblemArrays) -> Path:
@@ -59,9 +65,9 @@ def problem_path(pa: ProblemArrays) -> Path:
     if pa.rv_d_cols.shape[0]:
         return Path(stochastic_updates_randcost,
                     stochastic_updates_randcost_batch, cut_argmax_randcost,
-                    accumulate_randcost, reform_cuts_randcost)
+                    accumulate_randcost, reform_sums_randcost)
     return Path(stochastic_updates, stochastic_updates_batch, cut_argmax,
-                accumulate, reform_cuts)
+                accumulate, reform_sums)
 
 
 def lp_master(cfg: SDConfig) -> bool:
@@ -128,7 +134,7 @@ def make_substeps(pa: ProblemArrays, cfg: SDConfig):
     def subprob_update(state: SDState) -> SDState:
         o_idx = state.last_o_idx
         res, state = warm_solve_subproblem(pa, state, state.candid_x,
-                                           state.omega_vals[o_idx])
+                                           omega_row(state, o_idx))
         state = state._replace(
             lp_cnt=state.lp_cnt + 1,
             lp_pivots=state.lp_pivots + int(res.iters),
@@ -167,11 +173,11 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
     lp = lp_master(cfg)
     path = problem_path(pa)
 
-    def _form_sd_cut(state: SDState, x, o_idx: int, new_o: bool, k: int,
+    def _form_sd_cut(state: SDState, x, w, o_idx: int, new_o: bool, k: int,
                      incumbent: bool):
-        """formSDCut (cuts.c:22-89): solve subproblem, run stochastic
-        updates, build the SD cut via argmax, add it to pool."""
-        w = state.omega_vals[o_idx]
+        """formSDCut (cuts.c:22-89): solve subproblem at the stored
+        observation ``w`` (index ``o_idx``), run stochastic updates, build
+        the SD cut via argmax, add it to pool."""
         res, state = warm_solve_subproblem(pa, state, x, w)
         sp_feas = bool(res.status == STATUS_OPTIMAL)
         state = state._replace(lp_cnt=state.lp_cnt + 1,
@@ -183,15 +189,16 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
     def _batched_candidate_cut(state: SDState, w_batch, k: int):
         """The B observations of a step: dedup, one lane-batched solve at
         the candidate warm-started from the carried basis, pooling, and one
-        candidate cut over the enlarged sample (JAX core/step.py:245-380)."""
+        candidate cut over the enlarged sample (JAX core/step.py:245-380).
+        Returns (state, slot, the last observation of the batch)."""
         state, o_idxs, new_flags = calc_omega_batch(state, w_batch, tol)
         state = state._replace(last_o_idx=int(o_idxs[-1]))
         # Past an overflowed omega pool read the last row, as the JAX
         # package's gather does; the runner then raises on the overflow.
-        O = state.omega_vals.shape[0]
+        O = obs_range(state)[2]
         rows = torch.as_tensor(np.minimum(o_idxs, O - 1),
                                device=w_batch.device)
-        ws = state.omega_vals[rows]
+        ws = omega_rows(state, rows)
         rhs, cost = subproblem_rhs_cost_lanes(pa, state.candid_x, ws)
         B = ws.shape[0]
         res_b = solve_lp(
@@ -219,7 +226,8 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
             sp_feas=state.sp_feas and n_ok == B)
         state = path.updates_batch(pa, state, res_b, o_idxs, new_flags, k,
                                    tol)
-        return _cut(pa, cfg, path, state, state.candid_x, k, incumbent=False)
+        return (*_cut(pa, cfg, path, state, state.candid_x, k,
+                      incumbent=False), ws[-1])
 
     def _check_improvement(state: SDState, cand_slot: int, k: int):
         """checkImprovement / replaceIncumbent (soln.c:24-94)."""
@@ -266,12 +274,14 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
         if batch == 1:
             state, o_idx, new_o = calc_omega(state, w[0], tol)
             state = state._replace(last_o_idx=o_idx)
+            # A new observation is stored as drawn; a match is read back.
+            row = w[0] if new_o else omega_row(state, o_idx)
             # 3. candidate cut (algo.c:155).
             state, cand_slot = _form_sd_cut(
-                state, state.candid_x, o_idx, new_o, k, incumbent=False)
+                state, state.candid_x, row, o_idx, new_o, k, incumbent=False)
             do_inc = (k - state.i_cut_updt) % cfg.TAU == 0
         else:
-            state, cand_slot = _batched_candidate_cut(state, w, k)
+            state, cand_slot, row = _batched_candidate_cut(state, w, k)
             do_inc = (k - state.i_cut_updt) >= cfg.TAU
 
         # 4. incumbent cut every TAU iterations (algo.c:161-166) and 5. the
@@ -279,7 +289,7 @@ def make_step(pa: ProblemArrays, spec: SamplerSpec, cfg: SDConfig):
         # machinery, absent in LP mode (setup.c:113-119).
         if not lp:
             if do_inc:
-                state, _ = _form_sd_cut(state, state.incumb_x,
+                state, _ = _form_sd_cut(state, state.incumb_x, row,
                                         state.last_o_idx, False, k,
                                         incumbent=True)
             if not state.incumb_chg and k > 1:

@@ -5,6 +5,12 @@ stocUpdate.c:272,300-308,331) are masked all-pairs compares over the fixed
 capacity pools, as in the JAX package; the outcome of each dedup (found or
 new) is read back to the host, which then writes the new pool entry in
 place.  The delta table fills (stocUpdate.c:196-257) are matrix products.
+
+On a state sharded over obs ranks (``SDState.shard``) every rank holds its
+block [lo, hi) of the observation columns: the omega dedup takes the
+minimum over the ranks of each rank's first match, a new observation is
+stored (and weighted) by the rank that owns its index, and the delta fills
+cover the rank's own columns; the lambda and sigma pools are replicated.
 """
 
 from __future__ import annotations
@@ -12,10 +18,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
+from stochasticdecomposition_torch.core.state import (
+    ProblemArrays, SDState, obs_range,
+)
 from stochasticdecomposition_torch.ops.simplex import (
     AT_LOWER, AT_UPPER, STATUS_OPTIMAL, LPResult, lane, solve_lp,
 )
+from stochasticdecomposition_torch.parallel.distributed import (
+    obs_min, obs_sum,
+)
+
+_NO_MATCH = 2 ** 62             # above every observation index
 
 
 def subproblem_rhs_cost(pa: ProblemArrays, x, w):
@@ -102,30 +115,58 @@ def _first_match(close: torch.Tensor, cnt: int):
 def calc_omega(state: SDState, w, tol: float):
     """Dedup the new observation into the omega pool (stocUpdate.c:326-348).
 
-    Returns (state, idx, is_new)."""
+    Returns (state, idx, is_new); ``idx`` is the global index."""
     cnt = state.omega_cnt
+    lo, hi, _ = obs_range(state)
     if w.shape[0]:
         close = torch.all(torch.abs(state.omega_vals - w[None, :]) <= tol,
                           dim=1)
     else:
         close = torch.ones(state.omega_vals.shape[0], dtype=torch.bool,
                            device=w.device)
-    found = _first_match(close, cnt)
+    found = _first_match(close, max(cnt - lo, 0))
+    if state.shard is not None:
+        first = torch.tensor([_NO_MATCH if found is None else lo + found])
+        first = int(obs_min(first, state.shard))
+        found = None if first == _NO_MATCH else first - lo
     if found is None:
         idx = cnt
-        if idx < state.omega_vals.shape[0]:
-            state.omega_vals[idx] = w
+        if lo <= idx < hi:
+            state.omega_vals[idx - lo] = w
         cnt += 1
     else:
-        idx = found
-    if idx < state.omega_w.shape[0]:
-        state.omega_w[idx] += 1
+        idx = lo + found
+    if lo <= idx < hi:
+        state.omega_w[idx - lo] += 1
     return state._replace(omega_cnt=cnt), idx, found is None
 
 
+def omega_rows(state: SDState, idx) -> torch.Tensor:
+    """The stored observations at the global indices ``idx`` (int64 [B]
+    on the state's device): [B, R] on every rank, each row from the rank
+    that owns it."""
+    if state.shard is None:
+        return state.omega_vals[idx]
+    lo, hi, _ = obs_range(state)
+    mine = (idx >= lo) & (idx < hi)
+    rows = torch.zeros((idx.shape[0], state.omega_vals.shape[1]),
+                       dtype=state.omega_vals.dtype, device=idx.device)
+    rows[mine] = state.omega_vals[idx[mine] - lo]
+    return obs_sum(rows, state.shard)
+
+
+def omega_row(state: SDState, o_idx: int) -> torch.Tensor:
+    """The stored observation ``o_idx`` (global) on every rank."""
+    if state.shard is None:
+        return state.omega_vals[o_idx]
+    idx = torch.tensor([o_idx], device=state.omega_vals.device)
+    return omega_rows(state, idx)[0]
+
+
 def delta_new_omega_column(pa: ProblemArrays, state: SDState, o_idx: int):
-    """Fill delta column o_idx for every stored lambda (calcDelta Case I,
-    stocUpdate.c:206-229).  Unused lambda rows are zero so no mask needed."""
+    """Fill delta column o_idx (of this state's columns) for every stored
+    lambda (calcDelta Case I, stocUpdate.c:206-229).  Unused lambda rows
+    are zero so no mask needed."""
     nb = pa.rv_b_rows.shape[0]
     nC = pa.rv_C_rows.shape[0]
     w = state.omega_vals[o_idx]
@@ -143,8 +184,9 @@ def delta_new_omega_column(pa: ProblemArrays, state: SDState, o_idx: int):
 
 
 def delta_new_lambda_row(pa: ProblemArrays, state: SDState, l_idx: int):
-    """Fill delta row l_idx for every stored omega (calcDelta Case II,
-    stocUpdate.c:230-254).  Unused omega columns are zero-vectors -> zeros."""
+    """Fill delta row l_idx for every stored omega of this state's columns
+    (calcDelta Case II, stocUpdate.c:230-254).  Unused omega columns are
+    zero-vectors -> zeros."""
     nb = pa.rv_b_rows.shape[0]
     nC = pa.rv_C_rows.shape[0]
     lam = state.lambda_vals[l_idx]
@@ -212,7 +254,8 @@ def calc_sigma(pa: ProblemArrays, state: SDState, pi, mub_bar, lidx: int,
     return state._replace(sigma_cnt=cnt + 1), idx, True
 
 
-def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None):
+def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None,
+                 shard=None, offset: int = 0):
     """Order-preserving dedup of a candidate batch against a pool: the
     outcome of B sequential per-item dedups, in one pass.
 
@@ -221,8 +264,11 @@ def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None):
     near-match to it does not count: the tolerance chaining of the
     sequential scan).  cand: [B, d]; pool: [cnt0, d], the occupied rows;
     ``extra_eq``: optional ([B, cnt0], [B, B]) equality masks ANDed in.
-    Returns (idx int64 [B] on the host, is_new bool [B] on the host,
-    new_cnt); new items take consecutive slots from cnt0 in batch order.
+    With ``shard``, ``pool`` is this rank's block of the pool, which starts
+    at index ``offset``, and the first pool match is the minimum over the
+    obs ranks.  Returns (idx int64 [B] on the host, is_new bool [B] on the
+    host, new_cnt); new items take consecutive slots from cnt0 in batch
+    order.
     """
     B, d = cand.shape
     if d:
@@ -239,7 +285,12 @@ def _batch_dedup(cand, pool, cnt0: int, tol: float, extra_eq=None):
         close_batch = close_batch & extra_eq[1]
     match_pool = torch.any(close_pool, dim=1)
     first_pool = torch.argmax(close_pool.to(torch.int8), dim=1) \
-        if close_pool.shape[1] else torch.zeros(B, dtype=torch.int64)
+        if close_pool.shape[1] else torch.zeros(B, dtype=torch.int64,
+                                                device=cand.device)
+    if shard is not None:
+        first_pool = obs_min(torch.where(match_pool, first_pool + offset,
+                                         _NO_MATCH), shard)
+        match_pool = first_pool < _NO_MATCH
     # One transfer: the sequential decisions are B steps on the host.
     match_pool, first_pool, close_batch = (
         t.cpu().numpy() for t in (match_pool, first_pool, close_batch))
@@ -265,17 +316,21 @@ def calc_omega_batch(state: SDState, w_batch, tol: float):
     contents, weights and slot order as B sequential ``calc_omega`` calls
     (which the JAX package makes on random-cost problems; the outcome is
     the same on every problem).
-    Returns (state, o_idxs, new_flags), both numpy [B]."""
-    O = state.omega_vals.shape[0]
+    Returns (state, o_idxs, new_flags), both numpy [B]; the indices are
+    global."""
     cnt = state.omega_cnt
-    idx, is_new, cnt1 = _batch_dedup(w_batch, state.omega_vals[:min(cnt, O)],
-                                     cnt, tol)
-    put = is_new & (idx < O)
+    lo, hi, _ = obs_range(state)
+    idx, is_new, cnt1 = _batch_dedup(
+        w_batch, state.omega_vals[:max(min(cnt, hi) - lo, 0)], cnt, tol,
+        shard=state.shard, offset=lo)
+    mine = (idx >= lo) & (idx < hi)
+    put = is_new & mine
     if put.any():
-        state.omega_vals[torch.as_tensor(idx[put], device=w_batch.device)] = \
+        state.omega_vals[torch.as_tensor(idx[put] - lo,
+                                         device=w_batch.device)] = \
             w_batch[torch.as_tensor(np.flatnonzero(put),
                                     device=w_batch.device)]
-    inside = idx[idx < O]
+    inside = idx[mine] - lo
     state.omega_w.index_add_(
         0, torch.as_tensor(inside, device=w_batch.device),
         torch.ones(inside.shape[0], dtype=state.omega_w.dtype,
@@ -321,10 +376,10 @@ def stochastic_updates_batch(pa: ProblemArrays, state: SDState,
     if new_l.shape[0]:
         state.lambda_vals[rows_l] = lam_b[items_l]
 
-    # ---- delta fills (calcDelta Cases II then I) ------------------------
-    Ocap = state.delta_pib.shape[1]
-    new_c = np.flatnonzero(new_o & (o_idxs < Ocap))
-    cols_o = torch.as_tensor(o_idxs[new_c], device=dev)
+    # ---- delta fills (calcDelta Cases II then I), this state's columns --
+    lo, hi, _ = obs_range(state)
+    new_c = np.flatnonzero(new_o & (o_idxs >= lo) & (o_idxs < hi))
+    cols_o = torch.as_tensor(o_idxs[new_c] - lo, device=dev)
     if nb:
         if new_l.shape[0]:
             state.delta_pib[rows_l] = (
@@ -380,9 +435,10 @@ def stochastic_updates(pa: ProblemArrays, state: SDState, res: LPResult,
     stocUpdate.c:14-133) on the plain path; random cost coefficients take
     core/randcost.py's variant instead.  Returns (state, sigma_idx)."""
     # New observation -> new delta column against all lambdas (must run before
-    # the new lambda row fill, mirroring stocUpdate.c:24-31).
-    if new_o and o_idx < state.delta_pib.shape[1]:
-        state = delta_new_omega_column(pa, state, o_idx)
+    # the new lambda row fill, mirroring stocUpdate.c:24-31), by its owner.
+    lo, hi, _ = obs_range(state)
+    if new_o and lo <= o_idx < hi:
+        state = delta_new_omega_column(pa, state, o_idx - lo)
 
     feas = bool(res.status == STATUS_OPTIMAL)
     # For infeasible subproblems the dual ray (Farkas certificate) enters the

@@ -3,17 +3,28 @@
 The port of the JAX package's ``parallel/distributed.py``.  A run over
 several cards is one process (rank) per card; the ranks join one process
 group, and the replication runner (``parallel/runner.py``) gives each rep
-group's lead rank its replications.  The compromise and the result files
-stay on rank 0, the coordinator (compromise.c:249-311 gathers to one
-aggregation point).
+group its replications.  The compromise and the result files stay on rank
+0, the coordinator (compromise.c:249-311 gathers to one aggregation point).
 
-The collectives carry host data only: ``ReplicationResult``s (their
-``BatchEntry`` is host copies already), done and error flags, and the
-evaluation's per-lane objectives.  No device tensor crosses ranks, so the
-group's backend is ``gloo``: it works for ranks that share one card and
-across nodes alike.
+Two kinds of collectives, both on ``gloo``:
 
-Two timeouts.  Joining the group waits at most ``JOIN_TIMEOUT`` for the
+  * between replications, host data: ``ReplicationResult``s (their
+    ``BatchEntry`` is host copies already), done and error flags, and the
+    evaluation's per-lane objectives (``all_gather``);
+  * inside one replication whose pools are sharded over the ranks of its
+    rep group (``ObsShard``), small tensors: the partial sums of a cut,
+    first matches, the bootstrap's weights, stored observations
+    (``obs_sum``, ``obs_min``, ``obs_max``).  They are staged through the host:
+    the ranks of one card's run share it, and NCCL refuses two ranks on
+    one device, while ``gloo`` takes host tensors on any layout; on
+    separate cards the same ``gloo`` group works unchanged (a few scalars
+    and [n1] vectors per cut, not worth an NCCL group).  ``obs_sum`` sums
+    the gathered parts in rank order on the host, so that every rank of
+    the group holds the same bits and takes the same decisions.
+    ``obs_seconds`` and ``obs_calls`` count their wall time (the host
+    staging included) and their calls in this process.
+
+Three timeouts.  Joining the group waits at most ``JOIN_TIMEOUT`` for the
 other ranks, so a missing peer fails instead of hanging.  The runner's
 collectives then wait for whole waves of replications, hours at storm
 scale, so they go through a second group with ``WAVE_TIMEOUT``; a peer
@@ -21,12 +32,17 @@ process that dies closes its sockets, and the others fail at once.  A peer
 that hangs without dying (a stuck card, an endless loop) holds the others
 in the gather until ``WAVE_TIMEOUT``: what bounds such a run is the time
 limit of whatever launches it (``timeout`` around ``torchrun``, the job
-scheduler's wall-clock limit).
+scheduler's wall-clock limit).  The obs groups' collectives come every
+step, between the same replicated work on every rank, so they wait at
+most ``OBS_TIMEOUT``: a rank that failed alone, outside a collective,
+leaves its peers waiting that long before they fail too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from datetime import timedelta
 from typing import Optional
 
@@ -37,8 +53,15 @@ from stochasticdecomposition_torch.device import resolve_device
 
 JOIN_TIMEOUT = timedelta(minutes=5)
 WAVE_TIMEOUT = timedelta(days=7)
+OBS_TIMEOUT = timedelta(minutes=30)
 
 _wave_group = None
+_obs_groups = {}
+
+# Wall seconds and calls of the obs collectives in this process; a caller
+# that reads them sets them to 0 first.
+obs_seconds = 0.0
+obs_calls = 0
 
 
 def maybe_initialize(coordinator_address: Optional[str] = None,
@@ -117,3 +140,79 @@ def rank_device(device=None) -> torch.device:
             dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     return dev
+
+
+def new_obs_groups(n_rep: int, n_obs: int):
+    """One ``gloo`` group per rep group, over its ``n_obs`` ranks
+    ``g * n_obs ... (g + 1) * n_obs - 1``; returns this rank's (None past
+    the mesh).  Every rank of the world calls it, with the same shape; the
+    groups of a shape are built once per process group."""
+    key = (id(_wave_group), n_rep, n_obs)
+    if key not in _obs_groups:
+        mine = None
+        for g in range(n_rep):
+            ranks = list(range(g * n_obs, (g + 1) * n_obs))
+            group = dist.new_group(ranks=ranks, backend="gloo",
+                                   timeout=OBS_TIMEOUT)
+            if process_index() in ranks:
+                mine = group
+        _obs_groups[key] = mine
+    return _obs_groups[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsShard:
+    """A rank's block of one replication's observation columns: the global
+    columns ``[lo, hi)`` of its pools (the block layout of the JAX
+    package's ``P("obs")``), the ``n_obs`` ranks of its rep group that hold
+    the others, and their process group.  A state without one (``None``)
+    holds every column, and the collectives below are the identity."""
+    lo: int
+    hi: int
+    n_obs: int
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+
+
+def _combined(t: torch.Tensor, shard: ObsShard, combine) -> torch.Tensor:
+    """``combine`` of every obs rank's ``t`` (same shape and dtype),
+    gathered in obs order on the host, back on ``t``'s device."""
+    global obs_seconds, obs_calls
+    t0 = time.perf_counter()
+    host = t.detach().cpu().contiguous()
+    parts = [torch.empty_like(host) for _ in range(shard.n_obs)]
+    dist.all_gather(parts, host, group=shard.group)
+    out = combine(parts).to(t.device)
+    obs_seconds += time.perf_counter() - t0
+    obs_calls += 1
+    return out
+
+
+def _in_order(parts: list) -> torch.Tensor:
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def obs_sum(t: torch.Tensor, shard: Optional[ObsShard]) -> torch.Tensor:
+    """The sum of ``t`` over the obs ranks, added in obs order (the same
+    bits on every rank).  A row that one rank holds and the others pass
+    as zeros reaches every rank as its owner's."""
+    if shard is None:
+        return t
+    return _combined(t, shard, _in_order)
+
+
+def obs_min(t: torch.Tensor, shard: Optional[ObsShard]) -> torch.Tensor:
+    """The elementwise minimum of ``t`` over the obs ranks."""
+    if shard is None:
+        return t
+    return _combined(t, shard, lambda parts: torch.stack(parts).amin(0))
+
+
+def obs_max(t: torch.Tensor, shard: Optional[ObsShard]) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the obs ranks."""
+    if shard is None:
+        return t
+    return _combined(t, shard, lambda parts: torch.stack(parts).amax(0))

@@ -3,21 +3,26 @@
 The port of the JAX package's ``parallel/runner.py``.  The reference runs
 replications one after another in one process (algo.c:36-76).  Here the
 MULTIPLE_REP replications run in waves of the mesh's ``n_rep``: in the wave
-that starts at replication ``wave_start``, rep group ``g``'s lead rank runs
-replication ``wave_start + g`` through ``SDSolver.solve_replication``, with
-its own RUN_SEED generators, feasibility handling, master-failure rule and
-pool-overflow check, so that every replication is the sequential path's
-(bit for bit on the same kind of device).  A short final wave leaves the
-last groups idle.  After each wave every rank gathers the wave's results,
-so that every rank returns the same ``ReplicationResult`` list in
-replication order.
+that starts at replication ``wave_start``, every rank of rep group ``g``
+runs replication ``wave_start + g`` through ``SDSolver.solve_replication``,
+with its own RUN_SEED generators (seeded alike on each of the group's
+ranks), feasibility handling, master-failure rule and pool-overflow check,
+so that every replication is the sequential path's (bit for bit on the
+same kind of device without obs sharding; within the last bits of the
+sums over observations with it).  With ``n_obs`` above 1 the group's ranks
+hold its observation columns in blocks (``Mesh.obs_shard``) and step in
+lockstep, combining their columns in the obs collectives of
+``parallel/distributed.py``.  A short final wave leaves the last groups
+idle.  After each wave every rank gathers the wave's results, taken from
+each group's obs rank 0, so that every rank returns the same
+``ReplicationResult`` list in replication order.
 
 A failure on one rank must not leave the others waiting in the gather: a
 rank that fails gathers its error text instead of a result, and then every
 rank raises the same RuntimeError naming the replication.
 
-Checkpoints (``checkpoint_every``, ``checkpoint_dir``): each rank that runs
-a replication writes that replication's files itself
+Checkpoints (``checkpoint_every``, ``checkpoint_dir``), with ``n_obs`` 1:
+each rank that runs a replication writes that replication's files itself
 (``utils/checkpoint.wave_path``).  The JAX package saves a wave's stacked
 state from one process and refuses to checkpoint across processes; here
 every mesh of more than one rep group is several processes, hence files
@@ -27,7 +32,10 @@ replication of that wave is rebuilt from its ``_final`` file if it has one,
 else resumes from its newest checkpoint in that directory, else starts
 afresh; the waves after it run.  Every rank reads the files of every lead
 rank, so checkpoints and resume over several nodes need a
-``checkpoint_dir`` that all the ranks share.
+``checkpoint_dir`` that all the ranks share.  A replication sharded over
+obs ranks is not checkpointed (ROADMAP A24), as the JAX package refuses
+checkpoints of a mesh across processes; nor are random cost coefficients
+sharded (ROADMAP A23).
 """
 
 from __future__ import annotations
@@ -51,7 +59,17 @@ def run_replications_meshed(solver, mesh, log=lambda s: None,
     R = solver.cfg.MULTIPLE_REP
     W = mesh.n_rep
     coords = mesh.coords()
-    group = coords[0] if coords is not None and coords[1] == 0 else None
+    group = None if coords is None else coords[0]
+    # Every rank refuses alike, before any work.
+    shard = mesh.obs_shard(solver.caps.O)
+    if mesh.n_obs > 1 and (checkpoint_every or resume_from):
+        raise ValueError(
+            "checkpoints and resume of replications sharded over obs ranks "
+            "are not supported (ROADMAP A24); use an Rx1 mesh")
+    if mesh.n_obs > 1 and solver.pa.rv_d_cols.shape[0]:
+        raise ValueError(
+            "random cost coefficients do not run sharded over obs ranks "
+            "(ROADMAP A23); use an Rx1 mesh")
     resume_wave, resume_dir = -1, None
     if resume_from:
         resume_wave = wave_start_of(resume_from)
@@ -76,7 +94,7 @@ def run_replications_meshed(solver, mesh, log=lambda s: None,
         return solver.solve_replication(
             rep, log=log, checkpoint_every=checkpoint_every,
             checkpoint_dir=checkpoint_dir, resume_from=resume,
-            wave_start=wave_start)
+            wave_start=wave_start, shard=shard)
 
     results = []
     for wave_start in range(0, R, W):
@@ -84,7 +102,9 @@ def run_replications_meshed(solver, mesh, log=lambda s: None,
         if group is not None and wave_start + group < R:
             rep = wave_start + group
             try:
-                slot = (rep, True, replication(wave_start, rep))
+                res = replication(wave_start, rep)
+                # The group's obs rank 0 reports the replication.
+                slot = (rep, True, res if coords[1] == 0 else None)
             except Exception:            # every rank must learn of it
                 slot = (rep, False, traceback.format_exc())
         gathered = sorted((s for s in all_gather(slot) if s is not None),
@@ -92,5 +112,5 @@ def run_replications_meshed(solver, mesh, log=lambda s: None,
         for rep, ok, text in gathered:
             if not ok:
                 raise RuntimeError(f"replication {rep} failed:\n{text}")
-        results += [res for _, _, res in gathered]
+        results += [res for _, _, res in gathered if res is not None]
     return results

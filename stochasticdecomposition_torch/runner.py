@@ -15,7 +15,8 @@ MASTER_TYPE 1/7 a branch-and-bound over the master's relaxations
 checkpointed and resumed (utils/checkpoint.py), can stream its metrics and
 estimate its phase times (utils/metrics.py).  ``run(mesh=)`` spreads the
 replications over the ranks of a ``torch.distributed`` run, one process per
-card (parallel/).
+card, and shards each replication's observation columns over its rep
+group's obs ranks (parallel/).
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ from stochasticdecomposition_torch.device import resolve_device
 from stochasticdecomposition_torch.ops.simplex import (
     STATUS_OPTIMAL, lane, solve_lp,
 )
+from stochasticdecomposition_torch.parallel.distributed import (
+    obs_max, obs_min,
+)
 from stochasticdecomposition_torch.prob import (
     StagedProblem, attach_stoc, decompose,
 )
@@ -67,6 +71,27 @@ from stochasticdecomposition_torch.utils.checkpoint import (
     load_checkpoint, save_state, wave_path,
 )
 from stochasticdecomposition_torch.utils.metrics import estimate_phase_times
+
+
+def lockstep_digest(state) -> torch.Tensor:
+    """What the obs ranks of one replication must hold bit for bit: k, the
+    pool counts and the incumbent's bits (int64, on the host)."""
+    counts = torch.tensor([state.k, state.omega_cnt, state.lambda_cnt,
+                           state.sigma_cnt, state.cut_cnt])
+    return torch.cat([counts, state.incumb_x.cpu().view(torch.uint8).long()])
+
+
+def check_lockstep(state) -> None:
+    """Raise on every obs rank of a sharded replication when its ranks no
+    longer step alike (each takes its host decisions from values that must
+    be bit-identical across them, or they would part in a collective)."""
+    if state.shard is None:
+        return
+    d = lockstep_digest(state)
+    if not torch.equal(obs_min(d, state.shard), obs_max(d, state.shard)):
+        raise RuntimeError(
+            f"the obs ranks of this replication are out of lockstep at "
+            f"k={state.k}: their k, pool counts or incumbents differ")
 
 
 def check_pool_overflow(omega_cnt: int, lambda_cnt: int, sigma_cnt: int,
@@ -214,7 +239,7 @@ class SDSolver:
                           checkpoint_dir: str | None = None,
                           resume_from: str | None = None,
                           metrics=None, time_phases: bool = False,
-                          wave_start: int | None = None
+                          wave_start: int | None = None, shard=None
                           ) -> ReplicationResult:
         """One replication to the certified stop or MAX_ITER samples.
 
@@ -229,11 +254,15 @@ class SDSolver:
         ``wave_start`` (the meshed runner, parallel/runner.py) names the
         checkpoints ``utils/checkpoint.wave_path(dir, wave_start, rep, k)``,
         records the wave in them, and adds the replication's ``_final``
-        file when it ends."""
+        file when it ends.  ``shard`` (``parallel/distributed.ObsShard``,
+        from the meshed runner) holds this rank's observation columns: every
+        obs rank of the group calls this at once, and they check at every
+        full test and at the end that they still step alike
+        (``check_lockstep``)."""
         cfg = self.cfg
         t0 = time.monotonic()
         gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
-        state = init_state(self.pa, self.caps, cfg, self.mean_sol)
+        state = init_state(self.pa, self.caps, cfg, self.mean_sol, shard)
         pool_alpha, pool_beta = [], []      # the feasibility cut pool
         n_full_tests = 0
         master_fails = 0
@@ -289,6 +318,7 @@ class SDSolver:
                     pre_test(float(state.candid_est),
                              float(state.incumb_est), cfg.PRE_EPSILON):
                 n_full_tests += 1
+                check_lockstep(state)
                 draws = bootstrap_draws(state, boot_gen, cfg.BOOTSTRAP_REP)
                 if full_test(self.pa, cfg, state, draws, self.reform):
                     optimal = True
@@ -343,6 +373,7 @@ class SDSolver:
                 state = state._replace(incumb_x=state.candid_x.clone(),
                                        incumb_est=state.candid_est.clone())
 
+        check_lockstep(state)
         if wave_start is not None and checkpoint_every and checkpoint_dir:
             save(None, optimal=int(optimal))
         result = self._result(state, rep, optimal, n_full_tests,

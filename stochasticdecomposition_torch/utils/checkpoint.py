@@ -1,7 +1,8 @@
 """Checkpoint / resume of one replication.
 
 The reference has none (its state lives in RAM).  The port's ``SDState``
-serializes to one ``.npz``: every field by name — tensors as arrays, the
+serializes to one ``.npz``: every field but ``shard`` (the layout of the
+state it loads into, ``like``'s) by name — tensors as arrays, the
 Python counts and flags as 0-d arrays, ``f_updt`` as a pair, and a field
 that is ``None`` as the flag ``__host_none_<field>`` — plus ``__host_``
 extras for the host loop, so that a resumed replication returns what an
@@ -57,6 +58,7 @@ _COUNTERS = ("n_full_tests", "master_failures", "master_fails", "wave_start",
              "optimal")
 # The field only the JAX package's state has; it marks its checkpoints.
 _JAX_KEY = "key"
+_SAVED = tuple(f for f in SDState._fields if f != "shard")
 
 
 def _nonzero_box(t: torch.Tensor) -> torch.Tensor:
@@ -79,7 +81,7 @@ def save_state(path: str, state: SDState, *, generators=(),
     """Write ``state`` and the host extras to ``path`` (an ``.npz``).
     ``generators`` is the replication's (observations, bootstrap) pair."""
     arrays = {}
-    for f in SDState._fields:
+    for f in _SAVED:
         v = getattr(state, f)
         if v is None:
             arrays[_NONE_PREFIX + f] = np.asarray(True)
@@ -119,8 +121,8 @@ def load_checkpoint(path: str, like: SDState) -> Tuple[SDState, dict]:
     with np.load(path) as data:
         data = dict(data)
     from_jax = _JAX_KEY in data
-    kwargs = {}
-    for f in SDState._fields:
+    kwargs = {"shard": like.shard}
+    for f in _SAVED:
         ref = getattr(like, f)
         if f not in data:
             if data.get(_NONE_PREFIX + f) is not None:

@@ -8,7 +8,9 @@ Every edge case of ``ops/argmax_cases.py`` (pool prefixes of 64 and 512
 rows, selected -inf and -1e300, NaN in selected and unselected rows, ties
 across split boundaries, an empty tile and an empty split), under the
 default split and, at (300, 256), under 2 and 5 S-splits and with cp.async
-copies (odd O takes them always).  Tolerance: exact — indices and heights
+copies (odd O takes them always); also at one obs rank's columns of the
+default table over 2 and 4 ranks, and at a width that splits oddly.
+Tolerance: exact — indices and heights
 equal, NaN matching NaN; one launch counted per call.  Without a card the
 test is skipped.
 """
@@ -19,7 +21,8 @@ import torch
 
 from stochasticdecomposition_torch.ops import argmax, argmax_cases
 
-SHAPES = [(1, 1), (5, 1), (37, 128), (300, 256), (1001, 777), (7501, 5120)]
+SHAPES = [(1, 1), (5, 1), (37, 128), (300, 256), (1001, 777), (7501, 5120),
+          (7501, 2560), (7501, 1280), (7501, 2561)]
 
 
 @pytest.fixture

@@ -18,7 +18,8 @@ def _port_files():
     # The card test runs on a machine without JAX.
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_argmax_cuda.py",
-        ROOT / "tests" / "torch_mesh_worker.py"]
+        ROOT / "tests" / "torch_mesh_worker.py",
+        ROOT / "tests" / "torch_obs_worker.py"]
 
 
 def _imported_roots(path):
@@ -45,7 +46,8 @@ def test_every_module_is_checked():
                 "utils/metrics.py", "parallel/distributed.py",
                 "parallel/mesh.py", "parallel/runner.py", "smps/native.py"):
         assert mod in checked, mod
-    assert ROOT / "tests" / "torch_mesh_worker.py" in _port_files()
+    for worker in ("torch_mesh_worker.py", "torch_obs_worker.py"):
+        assert ROOT / "tests" / worker in _port_files()
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -18,7 +18,8 @@ tests/test_randcost.py), generated by each package's copy of the generator.
   blocks): heights to 1e-12 against JAX and exactly against the
   materialized table; indices equal to JAX's, and the materialized table's
   height at them equal to the max.
-- ``reform_cuts_randcost`` on the same bootstrap counts: 1e-9.
+- ``reform_sums_randcost`` with the lb correction on the same bootstrap
+  counts: 1e-9.
 - 8 batched steps at SAMPLE_INCREMENT 4 (the observations pooled one at a
   time): as the 30 steps.
 - A run of the port on the CPU to the certified stop on ``fleetminilike``
@@ -37,10 +38,11 @@ import torch
 from stochasticdecomposition_torch.config import SDConfig
 from stochasticdecomposition_torch.core.cuts import add_cut, form_cut
 from stochasticdecomposition_torch.core.randcost import (
-    height_table_randcost, reform_cuts_randcost, triple_argmax_randcost,
+    height_table_randcost, reform_sums_randcost, triple_argmax_randcost,
 )
 from stochasticdecomposition_torch.core.state import stage_problem
 from stochasticdecomposition_torch.core.step import make_step, problem_path
+from stochasticdecomposition_torch.core.stopping import with_lb
 from stochasticdecomposition_torch.core.update import (
     calc_omega, warm_solve_subproblem,
 )
@@ -228,7 +230,9 @@ def test_reform_cuts_matches_jax(name):
     for r in range(4):
         d = rng.integers(0, ps.omega_cnt, size=ps.k)
         np.add.at(counts[r], d, 1)
-    alpha, beta = reform_cuts_randcost(pa, ps, torch.as_tensor(counts))
+    alpha, beta, count = reform_sums_randcost(pa, ps,
+                                              torch.as_tensor(counts))
+    alpha = with_lb(pa, ps, alpha, count)
     for r in range(4):
         ja, jb = jrc.reform_cuts_randcost(js.pa, st,
                                           jnp.asarray(counts[r], jnp.int32))

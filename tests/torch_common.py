@@ -59,10 +59,22 @@ RANDD = {
 }
 
 
+# An instance whose draws are almost all distinct (4^7 scenarios: five
+# random RHS rows and two random technology entries), so that a run's
+# observations fill more than one obs block of a sharded pool.
+SPREAD = {"spread": dict(seed=4, n_rv=5, support=4, rand_C=2)}
+
+
+def synthetic_spec(name):
+    """The ``parse_synthetic`` arguments of a synthetic test instance, or
+    None for a built-in one."""
+    return {**RANDC, **RANDD, **SPREAD}.get(name)
+
+
 def _parsed(name, port):
-    if name in RANDC or name in RANDD:
-        return (parse_synthetic if port else jax_parse_synthetic)(
-            **RANDC.get(name, RANDD.get(name)))
+    spec = synthetic_spec(name)
+    if spec is not None:
+        return (parse_synthetic if port else jax_parse_synthetic)(**spec)
     return (load_instance if port else jax_load_instance)(name)
 
 
