@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mesh-rank DIR`` is one rank of phase 16 and
-``--obs-rank DIR`` one of phase 17, started by torchrun; see there.)
+``--obs-rank DIR`` one of phase 17, started by torchrun; see there.  Each
+joins the process group before its CLI run and leaves it,
+``parallel/distributed.shutdown``, after its last collective.)
 
 Each phase prints one JSON line with its seconds; any failure exits non-zero
 (nothing is swallowed).  Phases:
@@ -147,6 +149,28 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 ``obs_seconds``, ``obs_calls``), also per step;
                 pgp2like's exact gap within GAP_LIMIT and its files on rank
                 0 only.
+     fleetminilike_obs2, baa99-20like_obs2 — random costs over the same
+                1x2 mesh (``obs_feas`` split like the observation columns),
+                phases 11 and 12's configurations held to their
+                replications by the same rules, with no kernel launch and
+                the blockwise random-cost argmax held against its
+                materialized table on each rank's final state.
+     spread_b16_obs2_resume — spread_b16_obs2 writes a checkpoint every
+                CKPT_EVERY samples (obs rank 0 gathers the ranks' columns
+                into one file; each rank's ``save_state`` seconds and the
+                files' bytes are reported); the last one resumed over the
+                1x2 mesh must give the uninterrupted sharded run bit for
+                bit, and resumed on a 1x1 mesh in this process within 1e-8,
+                each launching the kernel once per cut formed after it.
+ 18. partial_pricing — stormlike's second-stage LP (528 x 1259) at the
+                stormlike_b8 incumbent, with and without ``solve_lp``'s
+                ``partial_pricing``: PP_LANES (8 and 512) lanes of drawn
+                observations warm from the mean observation's basis (phase
+                9's); the same statuses and objectives within
+                PP_OBJ_RTOL; pivots per LP and seconds of each, beside the
+                card's name and power limit; the result fields in which the
+                first 8 lanes' bits differ between the two lane counts.
+                (It runs right after phase 9, on phase 8's solver.)
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
 drives the path and requires, just after, as many launches as cuts formed
@@ -164,6 +188,7 @@ import glob
 import io
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -201,12 +226,16 @@ SPREAD_ITERS = 300
 # Samples before the first stop test of spread_b16_obs2: ~3180 distinct
 # observations expected under SPREAD's probabilities, past 2560.
 SPREAD_B16_MIN = 3600
-OBS_FIELDS = ("omega_vals", "omega_w", "delta_pib", "delta_piC", "cut_istar")
 BAA_ITERS = 300
 LP_ITERS = 150
 LP_UB_LIMIT = 0.02               # LP-master UB against the optimum
 MIQP_LIMIT = 0.01                # MIQP incumbent against the integer optimum
 STOCH_CHECK_OBS = 32
+# Partial pricing (phase 18): stormlike's second-stage LPs at these lane
+# counts, warm from the mean observation's basis, drawn from PP_SEED.
+PP_LANES = (8, 512)
+PP_SEED = 11
+PP_OBJ_RTOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 # The last four: the full table and one rank's columns of it over 2 and 4
 # obs ranks, and a shard width that splits oddly (8-byte cp.async rows).
@@ -1064,8 +1093,11 @@ def torchrun(phase, flag, root, nproc, timeout):
 
 
 def obs_bytes(state) -> int:
-    """The bytes of the state's five observation-axis fields."""
-    return sum(getattr(state, f).nbytes for f in OBS_FIELDS)
+    """The bytes of the state's observation-axis fields (the five of
+    ``core/state.OBS_AXIS`` and, with random costs, ``obs_feas``)."""
+    from stochasticdecomposition_torch.core.state import obs_fields
+
+    return sum(getattr(state, f).nbytes for f in obs_fields(state))
 
 
 def rep_fields(r) -> dict:
@@ -1075,18 +1107,36 @@ def rep_fields(r) -> dict:
             "cuts_formed": r.cuts_formed, "sd_seconds": r.time_total}
 
 
+def baa_cfg():
+    """baa99-20like's configuration (phases 12 and 17): BAA_ITERS
+    iterations at the default capacities; nd = 4 cost RVs, so lambda and
+    sigma hold 4 * 5000 + 2501 rows."""
+    from stochasticdecomposition_torch.config import SDConfig
+
+    return SDConfig(EVAL_FLAG=False, MAX_ITER=BAA_ITERS,
+                    **{**DEFAULT_CAPS, "MAX_LAMBDA": 22501,
+                       "MAX_SIGMA": 22501})
+
+
+# Phase 17's random-cost runs, held to phases 11 and 12.
+RANDCOST_OBS2 = ("fleetminilike_obs2", "baa99-20like_obs2")
+
+
 def obs2_runs():
-    """Phase 17's runs through ``SDSolver.run`` (the third, pgp2like, goes
-    through the CLI): (phase, instance, config)."""
+    """Phase 17's runs through ``SDSolver.run`` (pgp2like goes through the
+    CLI): (phase, instance, config, checkpoint cadence or 0)."""
     from stochasticdecomposition_torch.config import SDConfig
 
     return [("lands_b16_obs2", "lands",
-             SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=16)),
+             SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=16), 0),
             ("spread_obs2", "spread",
-             SDConfig(EVAL_FLAG=False, MAX_ITER=SPREAD_ITERS)),
+             SDConfig(EVAL_FLAG=False, MAX_ITER=SPREAD_ITERS), 0),
             ("spread_b16_obs2", "spread",
              SDConfig(EVAL_FLAG=False, SAMPLE_INCREMENT=16,
-                      MIN_ITER=SPREAD_B16_MIN))]
+                      MIN_ITER=SPREAD_B16_MIN), CKPT_EVERY),
+            ("fleetminilike_obs2", "fleetminilike",
+             SDConfig(EVAL_FLAG=False), 0),
+            ("baa99-20like_obs2", "baa99-20like", baa_cfg(), 0)]
 
 
 def obs_rank(root):
@@ -1095,7 +1145,11 @@ def obs_rank(root):
     mesh; for each, this rank's launches, the bytes of its state's
     observation-axis fields, ``estimate_pool_bytes`` for the rank, its
     peak memory, its obs collectives' wall seconds and calls, and the
-    results.  Writes ``root/rankR.json``."""
+    results; with random costs the blockwise argmax against the
+    materialized table on the rank's final state; with checkpoints this
+    rank's seconds in ``save_state`` (obs rank 0 writes).  Then
+    spread_b16_obs2 resumed over the 1x2 mesh from its last checkpoint
+    (``<phase>_resume``).  Writes ``root/rankR.json``."""
     from stochasticdecomposition_torch import cli, runner
     from stochasticdecomposition_torch.core.state import estimate_pool_bytes
     from stochasticdecomposition_torch.ops import argmax
@@ -1103,6 +1157,13 @@ def obs_rank(root):
     from stochasticdecomposition_torch.parallel.mesh import make_mesh
 
     rank = int(os.environ["RANK"])
+    last, saves = {}, []
+    lockstep = runner.check_lockstep
+
+    def kept_state(state):
+        # Called with the final state at the end of every replication.
+        lockstep(state)
+        last["state"] = state
     held = []
     init = runner.init_state
 
@@ -1119,8 +1180,9 @@ def obs_rank(root):
         seen["run"] = run(self, *a, **kw)
         return seen["run"]
 
-    def measured(fn):
+    def measured(fn, k0=0):
         held.clear()
+        saves.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         argmax.launches = 0
@@ -1130,7 +1192,7 @@ def obs_rank(root):
         torch.cuda.synchronize()
         res = seen["run"].replications[0]
         sol = seen["solver"]
-        steps = -(-res.iterations // max(1, sol.cfg.SAMPLE_INCREMENT))
+        steps = -(-(res.iterations - k0) // max(1, sol.cfg.SAMPLE_INCREMENT))
         return {"seconds": time.monotonic() - t, "launches": argmax.launches,
                 "steps": steps, "obs_seconds": distributed.obs_seconds,
                 "obs_calls": distributed.obs_calls,
@@ -1143,29 +1205,102 @@ def obs_rank(root):
                 **rep_fields(res)}
 
     out = {"rank": rank}
+    flush = None
     with swapped(runner, "init_state", recorded), \
-            swapped(runner.SDSolver, "run", kept_run):
+            swapped(runner.SDSolver, "run", kept_run), \
+            swapped(runner, "check_lockstep", kept_state), \
+            swapped(runner, "save_state", timed(runner.save_state, saves)):
         rc = []
         out["pgp2like_obs2"] = measured(lambda: rc.append(cli.main(
             ["-p", "pgp2like", "-e", "0", "--mesh", "1x2", "--distributed",
              "-o", os.path.join(root, f"rank{rank}")])))
         out["pgp2like_obs2"]["rc"] = rc[0]
         dev = seen["solver"].device
-        for phase, name, cfg in obs2_runs():
+        for phase, name, cfg, every in obs2_runs():
             solver = runner.SDSolver(load_problem(name), cfg, device=dev)
-            out[phase] = measured(lambda: solver.run(mesh=make_mesh(1, 2)))
+            kw = {} if not every else dict(
+                checkpoint_every=every,
+                checkpoint_dir=os.path.join(root, "ckpt_" + phase))
+            out[phase] = measured(lambda: solver.run(mesh=make_mesh(1, 2),
+                                                     **kw))
+            if every:
+                out[phase]["checkpoint_seconds"] = list(saves)
+            if phase in RANDCOST_OBS2:
+                if flush is None:
+                    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                                        device=dev)
+                out[phase]["randcost_argmax"] = randcost_argmax_check(
+                    solver, last["state"], flush)
+            del solver
+        out.update(obs2_resume(root, rank, dev, measured))
     out["device"] = str(dev)
     with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
 
 
-def phase_obs2(dev, pgp_solver, pgp_res):
+def obs2_resume(root, rank, dev, measured):
+    """spread_b16_obs2 resumed over the 1x2 mesh from a copy of its last
+    checkpoint (the lead rank copies it; every rank reads it); obs rank 0's
+    checkpoint bytes."""
+    import torch.distributed as dist
+
+    from stochasticdecomposition_torch.parallel.mesh import make_mesh
+    from stochasticdecomposition_torch.runner import SDSolver
+
+    phase = "spread_b16_obs2"
+    _, name, cfg, _ = next(r for r in obs2_runs() if r[0] == phase)
+    files = sorted(glob.glob(os.path.join(root, "ckpt_" + phase,
+                                          "mesh_wave00_rep00_k*.npz")))
+    if not files:
+        raise RuntimeError(f"{phase}: no checkpoint was written")
+    src = files[-1]
+    start = os.path.join(root, "resume_" + phase, os.path.basename(src))
+    if rank == 0:
+        os.makedirs(os.path.dirname(start))
+        shutil.copy(src, start)
+    dist.barrier()
+    with np.load(src) as f:
+        k_at, cuts_at = int(f["k"]), int(f["cut_cnt"])
+    solver = SDSolver(load_problem(name), cfg, device=dev)
+    row = measured(lambda: solver.run(mesh=make_mesh(1, 2),
+                                      resume_from=start), k0=k_at)
+    row.update(resumed_from=os.path.basename(src), k_at=k_at,
+               cuts_at=cuts_at, checkpoint_path=src)
+    out = {phase + "_resume": row}
+    if rank == 0:
+        out["checkpoint_bytes"] = [os.path.getsize(f) for f in files]
+    return out
+
+
+def resume_1x1(dev, cfg, src):
+    """A copy of ``src``, a checkpoint of the 1x2 run, resumed on a 1x1 mesh
+    in this process: (the replication, launches, seconds)."""
+    from stochasticdecomposition_torch.ops import argmax
+    from stochasticdecomposition_torch.parallel.mesh import make_mesh
+    from stochasticdecomposition_torch.runner import SDSolver
+
+    solver = SDSolver(load_problem("spread"), cfg, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        start = os.path.join(d, os.path.basename(src))
+        shutil.copy(src, start)
+        argmax.launches = 0
+        t = time.monotonic()
+        res = solver.run(mesh=make_mesh(1, 1),
+                         resume_from=start).replications[0]
+        torch.cuda.synchronize()
+    return res, argmax.launches, time.monotonic() - t
+
+
+def phase_obs2(dev, pgp_solver, pgp_res, randcost_res):
     """Phase 17: one replication's pools split over two ranks that share
     the card (``--mesh 1x2``): pgp2like at the default capacities through
     the CLI, held to phase 4's replication ``pgp_res``; lands at
     SAMPLE_INCREMENT 16 and ``spread`` at batch 1 and 16 (whose
     observations fill both ranks' columns) through ``SDSolver.run``, held
-    to the same runs unsharded, made here first.  Returns {phase:
+    to the same runs unsharded, made here first; fleetminilike and
+    baa99-20like (random costs), held to phases 11 and 12's replications
+    ``randcost_res``; spread_b16_obs2 resumed from its last checkpoint over
+    1x2 (bit-identical) and 1x1 (within 1e-8).  Returns {phase:
     fields}."""
     from stochasticdecomposition_torch.core.state import init_state
     from stochasticdecomposition_torch.ops import argmax
@@ -1176,11 +1311,15 @@ def phase_obs2(dev, pgp_solver, pgp_res):
                     pgp_solver.mean_sol)
     whole = {"pgp2like_obs2": obs_bytes(st)}
     del st
-    for phase, name, cfg in obs2_runs():
+    for phase, name, cfg, _ in obs2_runs():
         solver = SDSolver(load_problem(name), cfg, device=dev)
         st = init_state(solver.pa, solver.caps, cfg, solver.mean_sol)
         whole[phase] = obs_bytes(st)
         del st
+        if phase in randcost_res:
+            want[phase] = randcost_res[phase]
+            ref[phase] = {"launches": 0, **rep_fields(want[phase])}
+            continue
         argmax.launches = 0
         res = solver.run().replications[0]
         torch.cuda.synchronize()
@@ -1196,6 +1335,11 @@ def phase_obs2(dev, pgp_solver, pgp_res):
         files = sorted(os.listdir(os.path.join(
             root, "rank0", "twoSD_torch", "pgp2like")))
         rank1_files = os.path.exists(os.path.join(root, "rank1"))
+        resumed = ranks[0]["spread_b16_obs2_resume"]
+        cfg_b16 = next(r[2] for r in obs2_runs()
+                       if r[0] == "spread_b16_obs2")
+        one, one_launches, one_s = resume_1x1(dev, cfg_b16,
+                                              resumed["checkpoint_path"])
     card = torch.cuda.get_device_name(dev)
     out = {}
     for phase, w in want.items():
@@ -1209,7 +1353,8 @@ def phase_obs2(dev, pgp_solver, pgp_res):
                     not within(g["incumb_est"], w.incumb_est, 1e-8):
                 problems.append(f"rank {r}: the replication differs from "
                                 f"the unsharded run ({g} vs {w})")
-            if g["launches"] != g["cuts_formed"] or g["launches"] <= 0:
+            if (g["launches"] != 0 if phase in RANDCOST_OBS2 else
+                    g["launches"] != g["cuts_formed"] or g["launches"] <= 0):
                 problems.append(f"rank {r}: {g['launches']} launches for "
                                 f"{g['cuts_formed']} cuts")
             if 2 * g["obs_bytes"] != whole[phase]:
@@ -1242,8 +1387,47 @@ def phase_obs2(dev, pgp_solver, pgp_res):
                               for g in rows))
         if problems:
             fail(f"{phase}: {problems}")
+    out["spread_b16_obs2"]["checkpoint_bytes"] = ranks[0]["checkpoint_bytes"]
+    out["spread_b16_obs2_resume"] = resume_fields(
+        [rk["spread_b16_obs2_resume"] for rk in ranks],
+        [rk["spread_b16_obs2"] for rk in ranks], one, one_launches, one_s)
     out["obs2_torchrun_seconds"] = seconds
     return out
+
+
+def resume_fields(rows, whole, one, one_launches, one_seconds):
+    """spread_b16_obs2's resumes against its uninterrupted 1x2 run
+    ``whole`` (per rank): over 1x2 (``rows``) bit for bit, and on a 1x1
+    mesh (``one``) within 1e-8; launches = cuts formed after the
+    checkpoint."""
+    keys = ("iterations", "optimal", "unique_omegas", "pool_sizes",
+            "incumb_x", "incumb_est", "cuts_formed")
+    problems = []
+    for r, (g, w) in enumerate(zip(rows, whole)):
+        if any(g[k] != w[k] for k in keys):
+            problems.append(f"rank {r}: the resumed run differs from the "
+                            f"uninterrupted one ({g} vs {w})")
+        if g["launches"] != g["cuts_formed"] - g["cuts_at"]:
+            problems.append(f"rank {r}: {g['launches']} launches after the "
+                            f"resume for {g['cuts_formed'] - g['cuts_at']} "
+                            "cuts")
+    w = whole[0]
+    if (one.iterations, one.optimal, one.unique_omegas, one.pool_sizes) != \
+            (w["iterations"], w["optimal"], w["unique_omegas"],
+             w["pool_sizes"]) or \
+            not within(one.incumb_x, w["incumb_x"], 1e-8) or \
+            not within(one.incumb_est, w["incumb_est"], 1e-8):
+        problems.append(f"the 1x1 resume differs: {rep_fields(one)} vs {w}")
+    if one_launches != one.cuts_formed - rows[0]["cuts_at"]:
+        problems.append(f"1x1: {one_launches} launches after the resume")
+    if problems:
+        fail(f"spread_b16_obs2_resume: {problems}")
+    return {"ranks": rows, "bit_identical": True,
+            "resume_1x1": {"launches": one_launches, "seconds": one_seconds,
+                           **rep_fields(one),
+                           "bit_identical": one.incumb_x.tolist() ==
+                           w["incumb_x"] and one.incumb_est ==
+                           w["incumb_est"]}}
 
 
 def within(a, b, rtol) -> bool:
@@ -1391,6 +1575,81 @@ def phase_storm(dev, flush):
     if not np.all(np.isfinite(res.incumb_x)):
         fail("stormlike: non-finite incumbent")
     out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    return out
+
+
+def phase_partial_pricing(storm, x):
+    """Phase 18: stormlike's second-stage LP (528 x 1259) at ``x`` with and
+    without ``partial_pricing`` (its defaults: a window of 16 pivots, 256
+    candidates): PP_LANES lanes of drawn observations warm from the mean
+    observation's basis, as the evaluator solves them (phase 9 solved it
+    at the same ``x``).  The same statuses and objectives within
+    PP_OBJ_RTOL; pivots per LP and seconds of each; the result fields in
+    which the first lanes' bits differ between the lane counts.  (The cold
+    mean-observation solve with partial pricing reaches the iteration cap
+    in both packages: scripts/torch_partial_pricing_storm.py.)"""
+    from stochasticdecomposition_torch.core.update import (
+        subproblem_rhs_cost_lanes,
+    )
+    from stochasticdecomposition_torch.ops.simplex import (
+        STATUS_OPTIMAL, LPResult, solve_lp,
+    )
+    from stochasticdecomposition_torch.sampler import sample_omega
+
+    pa = storm.pa
+    dev = pa.c1.device
+    x = torch.as_tensor(x, dtype=pa.c1.dtype, device=dev)
+
+    def solve(rhs, cost, pp, **kw):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        res = solve_lp(pa.D, pa.sense2, cost, pa.l2, pa.u2, rhs,
+                       partial_pricing=pp, **kw)
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t
+
+    def fields(res, seconds):
+        it = res.iters.double()
+        return {"pivots_per_lp": float(it.mean()), "pivots_max": int(it.max()),
+                "optimal": int(torch.sum(res.status == STATUS_OPTIMAL)),
+                "seconds": seconds}
+
+    def held(tag, full, part):
+        ok = full.status == STATUS_OPTIMAL
+        rel = torch.abs(full.obj - part.obj) / torch.clamp(
+            torch.abs(full.obj), min=1.0)
+        worst = float(torch.amax(torch.where(ok, rel, 0.0)))
+        if not torch.equal(full.status, part.status) or \
+                worst > PP_OBJ_RTOL or not bool(torch.all(ok)):
+            fail(f"partial_pricing {tag}: statuses {full.status.tolist()[:8]}"
+                 f" vs {part.status.tolist()[:8]}, objective rel {worst}")
+        return worst
+
+    basis, atup = storm.eval_batch_fn.mean_basis(x)
+    gen = torch.Generator(device=dev).manual_seed(PP_SEED)
+    w = sample_omega(storm.spec, gen, max(PP_LANES), dtype=pa.c1.dtype) - \
+        pa.omega_mean[None]
+    rhs, cost = subproblem_rhs_cost_lanes(pa, x, w)
+    out = {"m": pa.D.shape[0], "n": pa.D.shape[1]}
+    lanes = {}
+    for W in PP_LANES:
+        warm = dict(init_basis=basis.expand(W, -1),
+                    init_at_upper=atup.expand(W, -1))
+        for pp in (False, True):
+            lanes[W, pp] = solve(rhs[:W], cost[:W], pp, **warm)
+        out[f"lanes{W}"] = {
+            "full": fields(*lanes[W, False]),
+            "partial": fields(*lanes[W, True]),
+            "objective_rel": held(f"{W} lanes", lanes[W, False][0],
+                                  lanes[W, True][0])}
+    # The fields in which the first lanes differ between the lane counts.
+    n = min(PP_LANES)
+    out["lane_count_differs_in"] = {
+        ("partial" if pp else "full"): [
+            f for f in LPResult._fields
+            if not same(getattr(lanes[n, pp][0], f),
+                        getattr(lanes[max(PP_LANES), pp][0], f)[:n])]
+        for pp in (False, True)}
     return out
 
 
@@ -1633,6 +1892,11 @@ def main() -> None:
             not np.isfinite(ev.mean):
         fail(f"eval stormlike: {ev}")
     emit({"phase": "eval", **ev_out, "seconds": time.monotonic() - t})
+
+    t = time.monotonic()
+    out = phase_partial_pricing(storm, storm_res.incumb_x)
+    emit({"phase": "partial_pricing", **out, "nvidia_smi": smi,
+          "seconds": time.monotonic() - t})
     # The phases below start from the flush buffer alone.
     del storm, storm_res, evals, solver, res, rec
 
@@ -1642,23 +1906,20 @@ def main() -> None:
     emit({"phase": "feastest", **out, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    out = phase_randcost("fleetminilike", dev, SDConfig(EVAL_FLAG=False),
-                         flush, True)[0]
+    out, _, fleet_res, _ = phase_randcost("fleetminilike", dev,
+                                          SDConfig(EVAL_FLAG=False), flush,
+                                          True)
     if not out["certified"]:
         fail(f"fleetminilike: no certified stop before MAX_ITER ({out})")
     launches["fleetminilike"] = out["launches"]
     emit({"phase": "fleetminilike", **out, "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    # nd = 4 cost RVs: lambda and sigma hold 4 * 5000 + 2501 rows.
-    cfg = SDConfig(EVAL_FLAG=False, MAX_ITER=BAA_ITERS,
-                   **{**DEFAULT_CAPS, "MAX_LAMBDA": 22501,
-                      "MAX_SIGMA": 22501})
     # Its 5^20 x 5^4 scenarios are not enumerable: STOCH_CHECK instead.
-    out, solver, res, rec = phase_randcost("baa99-20like", dev, cfg, flush,
-                                           False)
+    out, solver, baa_res, rec = phase_randcost("baa99-20like", dev,
+                                               baa_cfg(), flush, False)
     out["stoch_check"] = stoch_check(solver, rec.last, STOCH_CHECK_OBS)
-    del solver, res, rec
+    del solver, rec
     launches["baa99-20like"] = out["launches"]
     emit({"phase": "baa99-20like", **out, "seconds": time.monotonic() - t})
 
@@ -1687,11 +1948,15 @@ def main() -> None:
           "seconds": time.monotonic() - t})
 
     t = time.monotonic()
-    outs = phase_obs2(dev, pgp_solver, pgp_res)
+    outs = phase_obs2(dev, pgp_solver, pgp_res,
+                      {"fleetminilike_obs2": fleet_res,
+                       "baa99-20like_obs2": baa_res})
     torchrun_s = outs.pop("obs2_torchrun_seconds")
     for phase, out in outs.items():
         if "unsharded" in out:
             launches[phase + "_unsharded"] = out["unsharded"]["launches"]
+        if "resume_1x1" in out:
+            launches[phase + "_1x1"] = out["resume_1x1"]["launches"]
         for r, row in enumerate(out["ranks"]):
             launches[f"{phase}_rank{r}"] = row["launches"]
         emit({"phase": phase, **out, "torchrun_seconds": torchrun_s})
@@ -1723,9 +1988,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:
-        mesh_rank(sys.argv[2])
-    elif sys.argv[1:2] == ["--obs-rank"]:
-        obs_rank(sys.argv[2])
+    rank_entry = {"--mesh-rank": mesh_rank, "--obs-rank": obs_rank}
+    if sys.argv[1:2] and sys.argv[1] in rank_entry:
+        # The rank joins the group (torchrun's environment) before the CLI
+        # does, so that the group outlives the CLI's run, and leaves it
+        # after its last collective.
+        from stochasticdecomposition_torch.parallel import distributed
+        distributed.maybe_initialize()
+        rank_entry[sys.argv[1]](sys.argv[2])
+        distributed.shutdown()
     else:
         main()

@@ -113,13 +113,32 @@ def apply_seed_offset(cfg: SDConfig, offset: int) -> SDConfig:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    """The CLI; with ``--distributed`` it joins the process group (unless
+    the caller has joined it already) and leaves it on its way out, on every
+    rank alike: through a barrier after a run, at once after an error."""
+    import torch.distributed as dist
+
     from stochasticdecomposition_torch.parallel.distributed import (
-        is_coordinator, maybe_initialize, process_count, process_index,
-        rank_device,
+        maybe_initialize, shutdown,
     )
-    if args.distributed:
+    args = build_parser().parse_args(argv)
+    joined = args.distributed and not dist.is_initialized() and \
         maybe_initialize()
+    if not joined:
+        return _run(args)
+    try:
+        rc = _run(args)
+    except BaseException:
+        shutdown(barrier=False)
+        raise
+    shutdown()
+    return rc
+
+
+def _run(args) -> int:
+    from stochasticdecomposition_torch.parallel.distributed import (
+        is_coordinator, process_count, process_index, rank_device,
+    )
     mesh = None
     if args.mesh:
         from stochasticdecomposition_torch.parallel.mesh import make_mesh

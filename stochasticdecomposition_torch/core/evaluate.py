@@ -100,8 +100,10 @@ def make_eval_batch(pa: ProblemArrays, spec: SamplerSpec, batch: int,
     eval_batch.pivots = 0
     eval_batch.base_pivots = 0
     # The lanes alone, for an evaluation that splits them across ranks
-    # (parallel/mesh.make_sharded_eval).
+    # (parallel/mesh.make_sharded_eval), and the mean observation's warm
+    # basis at x, (basis, at_upper), solved once per x.
     eval_batch.solve_lanes = solve_lanes
+    eval_batch.mean_basis = _base
     return eval_batch
 
 

@@ -16,6 +16,17 @@ and sigma-index slots of a basis are indexed by cost RV with a presence
 mask instead of the reference's packed arrays.  The argmax over the basis
 pool (``triple_argmax_randcost``) is blockwise PyTorch over the pool's live
 prefix: it never materializes the [B, nd, O] gather.
+
+On a state sharded over obs ranks (``SDState.shard``) the basis pool is
+replicated work and ``obs_feas`` is sharded like the other observation
+columns: rank j holds its columns [lo, hi) (``init_state`` allocates them),
+checks a new basis against its own observations and a new observation
+against every basis only where it owns it, and takes the argmax, the cut's
+sums and reformCuts' sums over its own columns, which ``form_cut`` and
+``bootstrap_bounds`` add over the ranks.  The one read of another rank's
+column, dedup 2's feasibility of the current observation, and its cost
+components come through the obs collectives.  (The JAX mesh keeps
+``obs_feas`` replicated; a rank's columns of it are the same values.)
 """
 
 from __future__ import annotations
@@ -23,11 +34,14 @@ from __future__ import annotations
 import torch
 
 from stochasticdecomposition_torch.core.cuts import height_table
-from stochasticdecomposition_torch.core.state import ProblemArrays, SDState
-from stochasticdecomposition_torch.core.update import (
-    calc_lambda, calc_sigma, compute_mu, delta_new_omega_column, pool_dual,
-    ray_mub,
+from stochasticdecomposition_torch.core.state import (
+    ProblemArrays, SDState, obs_range,
 )
+from stochasticdecomposition_torch.core.update import (
+    calc_lambda, calc_sigma, compute_mu, delta_new_omega_column, omega_row,
+    pool_dual, ray_mub,
+)
+from stochasticdecomposition_torch.parallel.distributed import obs_max
 from stochasticdecomposition_torch.ops.simplex import (
     AT_UPPER, STATUS_OPTIMAL, LPResult, lane,
 )
@@ -35,10 +49,16 @@ from stochasticdecomposition_torch.ops.simplex import (
 _NEG = -1e300
 
 
-def _wd(pa: ProblemArrays, state: SDState):
-    """Cost (d-block) components of every stored observation: [O, nd]."""
+def _cost_cols(pa: ProblemArrays) -> slice:
+    """The cost (d-block) components' columns of an observation."""
     off = pa.rv_b_rows.shape[0] + pa.rv_C_rows.shape[0]
-    return state.omega_vals[:, off:off + pa.rv_d_cols.shape[0]]
+    return slice(off, off + pa.rv_d_cols.shape[0])
+
+
+def _wd(pa: ProblemArrays, state: SDState):
+    """Cost (d-block) components of every stored observation of this
+    state's columns: [O, nd]."""
+    return state.omega_vals[:, _cost_cols(pa)]
 
 
 def check_bases_obs(pa: ProblemArrays, phi, present, pidet, gbar, psi, cstat,
@@ -61,8 +81,8 @@ def check_bases_obs(pa: ProblemArrays, phi, present, pidet, gbar, psi, cstat,
 
 def refresh_obs_feas_new_omega(pa: ProblemArrays, state: SDState, o_idx: int,
                                tol: float) -> SDState:
-    """A new observation: check every stored basis against it, on the
-    device (stocUpdate.c:27-31)."""
+    """A new observation, column ``o_idx`` of this state's columns: check
+    every stored basis against it, on the device (stocUpdate.c:27-31)."""
     wd_o = _wd(pa, state)[o_idx][None]
     state.obs_feas[:, o_idx] = check_bases_obs(
         pa, state.basis_phi, state.basis_present, state.basis_pidet,
@@ -76,7 +96,8 @@ def _basis_update(pa: ProblemArrays, state: SDState, res: LPResult,
     (stocUpdate.c:39-127)."""
     nd = pa.rv_d_cols.shape[0]
     n2 = pa.D.shape[1]
-    Bcap, O = state.obs_feas.shape
+    Bcap = state.obs_feas.shape[0]
+    lo, hi, O = obs_range(state)
     live = min(state.basis_cnt, Bcap)
     cstat8 = res.cstat.to(torch.int8)
     rstat8 = res.rstat.to(torch.int8)
@@ -91,7 +112,7 @@ def _basis_update(pa: ProblemArrays, state: SDState, res: LPResult,
 
     # ---- calcBasis (randCost.c:19-123): phi rows, psi tableau, gBar ----
     oc = min(o_idx, O - 1)      # past an overflowed omega pool: the last row
-    delta_d = _wd(pa, state)[oc]                                  # [nd]
+    delta_d = omega_row(state, oc)[_cost_cols(pa)]                # [nd]
     eq = res.basis[:, None] == pa.rv_d_cols[None, :]              # [m2, nd]
     present = torch.any(eq, dim=0)                                # [nd]
     pos = torch.argmax(eq.to(torch.int8), dim=0)                  # [nd]
@@ -122,11 +143,15 @@ def _basis_update(pa: ProblemArrays, state: SDState, res: LPResult,
     # ---- dedup 2: the same sigma signature (stocUpdate.c:101-114) ----
     if not any_new:
         bp = state.basis_present[:live]
+        feas_oc = state.obs_feas[:live, oc - lo] if lo <= oc < hi else \
+            torch.zeros(live, dtype=torch.bool, device=phi.device)
+        if state.shard is not None:     # column oc from its owner
+            feas_oc = obs_max(feas_oc.to(torch.uint8), state.shard).bool()
         same2 = (state.basis_sigma0[:live] == sidx0) & \
             torch.all(bp == present[None], dim=1) & \
             torch.all(~bp | (state.basis_sigma_idx[:live] == sidx_phi[None]),
                       dim=1) & \
-            state.basis_feas[:live] & state.obs_feas[:live, oc]
+            state.basis_feas[:live] & feas_oc
         if bool(torch.any(same2)):
             return state
 
@@ -150,7 +175,7 @@ def _basis_update(pa: ProblemArrays, state: SDState, res: LPResult,
                                    gbar[None], psi[None], cstat8[None],
                                    _wd(pa, state), tol)[0]
         state.obs_feas[bi] = feas_row & \
-            (torch.arange(O, device=phi.device) < state.omega_cnt)
+            (torch.arange(lo, hi, device=phi.device) < state.omega_cnt)
     return state._replace(basis_cnt=bi + 1)
 
 
@@ -160,9 +185,10 @@ def stochastic_updates_randcost(pa: ProblemArrays, state: SDState,
     """The random-cost variant of stochasticUpdates (stocUpdate.c:14-133)
     for one subproblem result (no lane axis).  Returns (state, 0): as
     ``stochastic_updates``, with no sigma index."""
-    if new_o and o_idx < state.delta_pib.shape[1]:
-        state = delta_new_omega_column(pa, state, o_idx)
-        state = refresh_obs_feas_new_omega(pa, state, o_idx, tol)
+    lo, hi, _ = obs_range(state)
+    if new_o and lo <= o_idx < hi:      # by the column's owner
+        state = delta_new_omega_column(pa, state, o_idx - lo)
+        state = refresh_obs_feas_new_omega(pa, state, o_idx - lo, tol)
     if bool(res.status == STATUS_OPTIMAL):
         return _basis_update(pa, state, res, o_idx, k, tol), 0
     # Infeasible: only the Farkas ray enters the pools (a sigma entry with
@@ -293,8 +319,10 @@ def reform_sums_randcost(pa: ProblemArrays, state: SDState, counts):
     dtype, dev = pa.c1.dtype, pa.c1.device
     kf = float(state.k)
     R = counts.shape[0]
+    lo, _, _ = obs_range(state)
     o_ids = torch.arange(O, device=dev)
-    valid = (o_ids[None, :] < state.cut_omega_cnt[:, None]).to(dtype)
+    valid = ((lo + o_ids)[None, :] <
+             state.cut_omega_cnt[:, None]).to(dtype)
     cnt = counts.to(dtype)                                        # [R, O]
 
     istar = state.cut_istar                                       # [K, O]

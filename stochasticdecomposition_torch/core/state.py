@@ -9,8 +9,9 @@ per-iteration work runs over the full pools whatever their occupancy.
 Counts and flags that the host loop branches on are plain Python numbers;
 pools and iterates are tensors.  A replication sharded over the obs ranks
 of a mesh (``parallel/mesh.py``) holds only its block of the observation
-axis of ``omega_vals``, ``omega_w``, ``delta_pib``, ``delta_piC`` and
-``cut_istar`` (``SDState.shard``, ``obs_range``); the counts, such as
+axis of ``omega_vals``, ``omega_w``, ``delta_pib``, ``delta_piC``,
+``cut_istar`` and, with random costs, ``obs_feas`` (``SDState.shard``,
+``obs_range``, ``obs_fields``); the counts, such as
 ``omega_cnt``, stay global.  The state is a NamedTuple, updated with
 ``_replace``; pool writes are made in place on the state's tensors (the
 pools are the large part of device memory, so they are never copied).
@@ -169,6 +170,21 @@ class SDState(NamedTuple):
     #                             batched subproblem solve, per lane
     shard: "ObsShard | None" = None  # this rank's observation columns
     #                             (parallel/distributed.ObsShard); None: all
+
+
+# The observation axis of the fields a sharded state holds in blocks
+# (``obs_feas`` only with random costs: otherwise a [B, 1] placeholder).
+OBS_AXIS = {"omega_vals": 0, "omega_w": 0, "delta_pib": 1, "delta_piC": 1,
+            "cut_istar": 1, "obs_feas": 1}
+
+
+def obs_fields(state: SDState) -> tuple:
+    """The fields of ``state`` that hold its observation columns: the
+    OBS_AXIS fields at the width of ``omega_w`` (without random costs
+    ``obs_feas`` is a placeholder every rank holds alike)."""
+    width = state.omega_w.shape[0]
+    return tuple(f for f, ax in OBS_AXIS.items()
+                 if getattr(state, f).shape[ax] == width)
 
 
 def obs_range(state: SDState) -> tuple:

@@ -22,6 +22,16 @@ Lanes are solved in lockstep with per-lane done masks; a lane that is done
 (or past its cap at a chunk boundary) keeps its state.  The loop leaves as
 soon as every lane is done, which changes nothing: the JAX loop's remaining
 masked pivots leave finished lanes as they are.
+
+A lane's path does not depend on how many lanes run with it.  A degenerate
+LP can tie in the Devex pricing exactly, and then the last bit of a pricing
+product picks the entering column; but a BLAS product of [B, m] rows by a
+shared [m, n] matrix takes another kernel, and other bits, at another B
+(a GEMV at B = 1, a GEMM above; on the card cuBLAS picks by shape).  So
+the lanes are padded to whole groups of ``lane_group`` lanes, and every
+product of the lanes (and on the card the refactorization) runs as one call
+of that fixed shape per group: lane i is always row i mod G of a call of the
+same shape.
 """
 
 from __future__ import annotations
@@ -90,9 +100,61 @@ def _nonbasic_values(lo, up, at_upper, in_basis):
     return torch.where(in_basis, zero, vals)
 
 
+def lane_group(device) -> int:
+    """The lanes of one product call: 16 on the CPU (the shape whose rows
+    take MKL's GEMM kernel), 64 on the card (fewer launches at the
+    evaluator's 512 lanes)."""
+    return 64 if torch.device(device).type == "cuda" else 16
+
+
+def _grouped(fn, *lanes):
+    """``fn`` over groups of ``lane_group`` lanes of the tensors ``lanes``
+    (each with the lane axis first, a whole number of groups): every call
+    has the same shape, so a lane's bits do not depend on the lane
+    count."""
+    B = lanes[0].shape[0]
+    G = lane_group(lanes[0].device)
+    if B == G:
+        return fn(*lanes)
+    return torch.cat([fn(*(t[g:g + G] for t in lanes))
+                      for g in range(0, B, G)])
+
+
+def _rows_mm(X, M):
+    """X [B, k] @ M [k, q] (M shared by the lanes): [B, q]."""
+    return _grouped(lambda x: x @ M, X)
+
+
+def _vec_mat(v, M):
+    """Per lane v[b] @ M[b]: v [B, k], M [B, k, q] -> [B, q]."""
+    return _grouped(lambda v_, m_: torch.bmm(v_[:, None, :], m_)[:, 0], v, M)
+
+
+def _mat_vec(M, v):
+    """Per lane M[b] @ v[b]: M [B, m, k], v [B, k] -> [B, m]."""
+    return _grouped(lambda m_, v_: torch.bmm(m_, v_[:, :, None])[:, :, 0],
+                    M, v)
+
+
+def _lane_dot(a, b):
+    """Per lane a[l] . b[l]: [B, k] -> [B] (a reduction whose split may
+    follow the number of outputs)."""
+    return _grouped(lambda a_, b_: torch.sum(a_ * b_, dim=1), a, b)
+
+
+def _refactor(A, basis):
+    """The basis inverses [B, m, m] (``ops/linalg.refactorize``).  On the
+    card in the same groups of lanes, since a batched LU may choose its
+    algorithm by the batch; on the CPU LAPACK factors each matrix alone,
+    whatever the batch."""
+    if basis.device.type != "cuda":
+        return refactorize(A, basis)
+    return _grouped(lambda bs: refactorize(A, bs), basis)
+
+
 def _compute_xb(A, b, binv, xn_full):
-    rhs_eff = b - xn_full @ A.T                               # [B, m]
-    return torch.einsum("bij,bj->bi", binv, rhs_eff)
+    rhs_eff = b - _rows_mm(xn_full, A.T)                      # [B, m]
+    return _mat_vec(binv, rhs_eff)
 
 
 def _take(a, idx):
@@ -138,7 +200,9 @@ def lane_cap(m: int, n: int, device) -> int:
     else:
         budget = 8 << 30
     per_lane = 8 * (8 * m * m + 40 * (m + n))
-    return max(1, budget // per_lane)
+    # Whole product groups, so that a pass boundary moves no lane.
+    G = lane_group(device)
+    return max(G, budget // per_lane // G * G)
 
 
 def _lane_slice(a, lanes: int, sl: slice):
@@ -148,10 +212,19 @@ def _lane_slice(a, lanes: int, sl: slice):
     return a[sl]
 
 
+def _pad_lanes(a, lanes: int, to: int):
+    """An argument with the lane axis padded from ``lanes`` to ``to`` lanes
+    with copies of its lane 0 (one without the lane axis as it is)."""
+    if a is None or a.dim() < 2 or a.shape[0] != lanes:
+        return a
+    return torch.cat([a, a[:1].expand((to - lanes,) + tuple(a.shape[1:]))])
+
+
 def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
              refac_every: int | None = None, stall_limit: int = 24,
              pivot_dtype=None, lite: bool = False,
-             partial_pricing: bool = False,
+             partial_pricing: bool = False, pp_window: int = 16,
+             pp_cands: int = 256,
              init_basis=None, init_at_upper=None) -> LPResult:
     """Solve  min d'y  s.t.  D y {sense} b,  l <= y <= u  for every lane.
 
@@ -162,7 +235,8 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     cadence max(64, min(512, m // 4)).  More lanes than ``lane_cap`` are
     solved in passes of that many, a guard against running out of memory
     under a user-set EVAL_BATCH (no default configuration reaches it); a
-    lane's result does not depend on the others.
+    lane's pivots do not depend on the others or on their count (the module
+    docstring), and on the CPU neither does any bit of its result.
 
     ``lite`` skips the final clean refactorization and reports the
     objective, primal and duals from the loop's last (chunk-end
@@ -170,11 +244,13 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     for the out-of-sample evaluator, which reads (obj, status).
     ``pivot_dtype`` (the JAX solver's f32 pivot loop, a TPU economy) is
     accepted and ignored: the port pivots in the input dtype.
-    ``partial_pricing`` is not ported.
+
+    ``partial_pricing`` (the JAX package's candidate-list Devex, an option
+    no run path sets): full pricing every ``pp_window`` pivots picks the
+    ``pp_cands`` best columns, and the pivots in between price on those
+    alone; optimality and infeasibility are decided only at a full
+    pricing.  The same pivots as the JAX package's on the same LP.
     """
-    if partial_pricing:
-        raise NotImplementedError(
-            "partial_pricing is not ported; the port prices every column")
     Bn = b.shape[0]
     cap = lane_cap(D.shape[0], D.shape[1], D.device)
     if Bn > cap:
@@ -185,9 +261,19 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
                 D, sense, _lane_slice(d, Bn, sl), _lane_slice(l, Bn, sl),
                 _lane_slice(u, Bn, sl), b[sl], max_iter=max_iter, tol=tol,
                 refac_every=refac_every, stall_limit=stall_limit, lite=lite,
-                init_basis=_lane_slice(init_basis, Bn, sl),
+                partial_pricing=partial_pricing, pp_window=pp_window,
+                pp_cands=pp_cands, init_basis=_lane_slice(init_basis, Bn, sl),
                 init_at_upper=_lane_slice(init_at_upper, Bn, sl)))
         return LPResult(*(torch.cat(f) for f in zip(*parts)))
+    # Whole product groups: padded lanes (copies of lane 0) start done, so
+    # they neither pivot nor hold the loop, and are dropped at the end.
+    live = Bn
+    G = lane_group(D.device)
+    Bn = -(-live // G) * G
+    if Bn != live:
+        d, l, u, b, init_basis, init_at_upper = (
+            _pad_lanes(a, live, Bn)
+            for a in (d, l, u, b, init_basis, init_at_upper))
     dtype = D.dtype
     dev = D.device
     m, n = D.shape
@@ -228,7 +314,7 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
         at_upper_w = (init_at_upper.to(torch.bool) & ~in_basis_w
                       if init_at_upper is not None
                       else at_upper_c & ~in_basis_w)
-        binv_w = refactorize(A, basis_w)
+        binv_w = _refactor(A, basis_w)
         # Singularity guard: a warm basis whose inverse is not finite
         # falls back to the cold all-slack start, lane by lane.
         warm_ok = torch.all(torch.isfinite(binv_w).reshape(Bn, -1), dim=1)
@@ -248,7 +334,7 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
         gamma=torch.ones((Bn, nt), dtype=dtype, device=dev),
         it=torch.zeros(Bn, dtype=i64, device=dev),
         stall=torch.zeros(Bn, dtype=i64, device=dev),
-        done=torch.zeros(Bn, dtype=torch.bool, device=dev),
+        done=torch.arange(Bn, device=dev) >= live,
         status=torch.full((Bn,), STATUS_OPTIMAL, dtype=i64, device=dev),
     )
 
@@ -259,43 +345,38 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     not_fixed = (up - lo) > tol
     free_all = ~fin_lo & ~fin_up
 
-    def body(st: _State, frozen) -> _State:
-        basis, in_basis, at_upper, binv, xb = (
-            st.basis, st.in_basis, st.at_upper, st.binv, st.xb)
-
-        lo_b = torch.gather(lo, 1, basis)
-        up_b = torch.gather(up, 1, basis)
-        viol_lo = xb < lo_b - tol
-        viol_hi = xb > up_b + tol
+    def price(st: _State):
+        """Phase and simplex multipliers of every lane: (lo_b, up_b,
+        viol_lo, viol_hi, in_phase1, piv)."""
+        lo_b = torch.gather(lo, 1, st.basis)
+        up_b = torch.gather(up, 1, st.basis)
+        viol_lo = st.xb < lo_b - tol
+        viol_hi = st.xb > up_b + tol
         in_phase1 = torch.any(viol_lo | viol_hi, dim=1)            # [B]
-        p1 = in_phase1[:, None]
-
         # Pricing vector: phase-1 infeasibility gradient or real costs.
         cb1 = torch.where(viol_lo, -one, torch.where(viol_hi, one, 0 * one))
-        cb = torch.where(p1, cb1, torch.gather(c, 1, basis))
-        piv = torch.einsum("bi,bij->bj", cb, binv)                # [B, m]
-        red = torch.where(p1, 0 * one, c) - piv @ A               # [B, nt]
+        cb = torch.where(in_phase1[:, None], cb1,
+                         torch.gather(c, 1, st.basis))
+        piv = _vec_mat(cb, st.binv)                               # [B, m]
+        return lo_b, up_b, viol_lo, viol_hi, in_phase1, piv
 
-        free_nb = ~in_basis & free_all
-        elig_inc = ~in_basis & not_fixed & (~at_upper | free_nb) & (red < -tol)
-        elig_dec = ~in_basis & not_fixed & (at_upper | free_nb) & (red > tol)
-        elig = elig_inc | elig_dec
-        score = torch.where(elig, red * red / st.gamma, -one)
+    def eligible(red, in_basis, at_upper, free_nb, nf):
+        """(increase, decrease): nonbasic columns whose reduced costs
+        ``red`` improve the objective."""
+        elig_inc = ~in_basis & nf & (~at_upper | free_nb) & (red < -tol)
+        elig_dec = ~in_basis & nf & (at_upper | free_nb) & (red > tol)
+        return elig_inc, elig_dec
 
-        use_bland = st.stall >= stall_limit
-        bland_key = torch.where(elig, -col_ids, -(nt + 1))
-        j = torch.where(use_bland, torch.argmax(bland_key, dim=1),
-                        torch.argmax(score, dim=1))                # [B]
-        any_elig = torch.any(elig, dim=1)
-
-        term_status = torch.where(in_phase1, STATUS_INFEASIBLE,
-                                  STATUS_OPTIMAL)
-        dir_ = torch.where(_take(elig_inc, j), one, -one)          # [B]
-
-        w = torch.einsum("bij,jb->bi", binv, A[:, j])             # [B, m]
+    def pivot(st: _State, ph, j, dir_, w):
+        """The Harris two-pass ratio test for entering column ``j`` with
+        direction ``dir_`` and column ``w`` = B^-1 A_j, and the pivoted (or
+        flipped) state of every lane before its Devex update: (basis2,
+        in_basis2, at_upper2, binv2, xb2, do_flip, t_star, unbounded,
+        stuck, r_leave, leave_var, safe_wr)."""
+        basis, in_basis, at_upper, binv, xb = (
+            st.basis, st.in_basis, st.at_upper, st.binv, st.xb)
+        lo_b, up_b, viol_lo, viol_hi, in_phase1, _ = ph
         delta = -dir_[:, None] * w
-
-        # --- Harris two-pass ratio test ----------------------------------
         moving_up = delta > tol
         moving_dn = delta < -tol
         upper_target = torch.where(viol_lo, lo_b,
@@ -346,31 +427,76 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
         leave_is_upper = torch.abs(blocked_at - _take(up, leave_var)) <= \
             torch.abs(blocked_at - _take(lo, leave_var))
 
+        yes = torch.ones_like(in_phase1)
         basis_new = _put(basis, r_leave, j)
-        in_basis_new = _put(_put(in_basis, j, torch.ones_like(any_elig)),
-                            leave_var, torch.zeros_like(any_elig))
+        in_basis_new = _put(_put(in_basis, j, yes), leave_var, ~yes)
         at_upper_new = _put(_put(at_upper, leave_var, leave_is_upper), j,
-                            torch.zeros_like(any_elig))
+                            ~yes)
 
-        # Devex weight update (Forrest-Goldfarb reference framework).
+        # Product-form update of the inverse: E = I - (w - e_r)/w_r * e_r'.
         w_r = _take(w, r_leave)
         safe_wr = torch.where(torch.abs(w_r) < 1e-12, one, w_r)
         binv_row_r = binv[lane_ids, r_leave]                      # [B, m]
-        alpha_row = binv_row_r @ A                                # [B, nt]
-        g_q = _take(st.gamma, j)
-        cand_g = torch.square(alpha_row / safe_wr[:, None]) * g_q[:, None]
-        gamma_piv = torch.maximum(st.gamma, cand_g)
-        gamma_piv = _put(gamma_piv, leave_var, torch.clamp(
-            g_q / torch.square(safe_wr), min=1.0))
-        reset = torch.amax(gamma_piv, dim=1) > 1e8
-        gamma_piv = torch.where(reset[:, None], one, gamma_piv)
-
-        # Product-form update of the inverse: E = I - (w - e_r)/w_r * e_r'.
         eta = _put(-w / safe_wr[:, None], r_leave, 1.0 / safe_wr)
         e_r = eye_m[r_leave]                                      # [B, m]
         binv_new = binv + (eta - e_r)[:, :, None] * binv_row_r[:, None, :]
         x_j_old = _take(_nonbasic_values(lo, up, at_upper, in_basis), j)
         xb_pivot = _put(xb_new, r_leave, x_j_old + dir_ * t_star)
+
+        # Flip: the entering variable stays nonbasic at its other bound.
+        fl = do_flip[:, None]
+        return (torch.where(fl, basis, basis_new),
+                torch.where(fl, in_basis, in_basis_new),
+                torch.where(fl, at_upper_flip, at_upper_new),
+                torch.where(fl[:, :, None], binv, binv_new),
+                torch.where(fl, xb_new, xb_pivot),
+                do_flip, t_star, unbounded, stuck, r_leave, leave_var,
+                safe_wr, binv_row_r)
+
+    def devex(gamma, gamma_at, j, leave_var, safe_wr, alpha):
+        """Devex weights after a pivot (Forrest-Goldfarb reference
+        framework): the weights ``gamma_at`` of the columns ``alpha`` (the
+        pivot row over them) is taken from, raised to their candidates."""
+        g_q = _take(gamma, j)
+        cand_g = torch.square(alpha / safe_wr[:, None]) * g_q[:, None]
+        gamma_piv = gamma_at(cand_g)
+        gamma_piv = _put(gamma_piv, leave_var, torch.clamp(
+            g_q / torch.square(safe_wr), min=1.0))
+        reset = torch.amax(gamma_piv, dim=1) > 1e8
+        return torch.where(reset[:, None], one, gamma_piv)
+
+    def body(st: _State, frozen) -> _State:
+        """One pivot of every lane under full pricing."""
+        ph = price(st)
+        in_phase1, piv = ph[4], ph[5]
+        p1 = in_phase1[:, None]
+        red = torch.where(p1, 0 * one, c) - _rows_mm(piv, A)      # [B, nt]
+
+        free_nb = ~st.in_basis & free_all
+        elig_inc, elig_dec = eligible(red, st.in_basis, st.at_upper,
+                                      free_nb, not_fixed)
+        elig = elig_inc | elig_dec
+        score = torch.where(elig, red * red / st.gamma, -one)
+
+        use_bland = st.stall >= stall_limit
+        bland_key = torch.where(elig, -col_ids, -(nt + 1))
+        j = torch.where(use_bland, torch.argmax(bland_key, dim=1),
+                        torch.argmax(score, dim=1))                # [B]
+        any_elig = torch.any(elig, dim=1)
+
+        term_status = torch.where(in_phase1, STATUS_INFEASIBLE,
+                                  STATUS_OPTIMAL)
+        dir_ = torch.where(_take(elig_inc, j), one, -one)          # [B]
+
+        w = _mat_vec(st.binv, A[:, j].T)                          # [B, m]
+        (basis2, in_basis2, at_upper2, binv2, xb2, do_flip, t_star,
+         unbounded, stuck, _, leave_var, safe_wr, binv_row_r) = \
+            pivot(st, ph, j, dir_, w)
+        alpha_row = _rows_mm(binv_row_r, A)                       # [B, nt]
+        gamma_piv = devex(st.gamma,
+                          lambda g: torch.maximum(st.gamma, g), j,
+                          leave_var, safe_wr, alpha_row)
+        gamma2 = torch.where(do_flip[:, None], st.gamma, gamma_piv)
 
         degen = t_star <= tol
         stall_new = torch.where(degen, st.stall + 1, 0)
@@ -381,25 +507,16 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
             torch.where(unbounded, STATUS_UNBOUNDED,
                         torch.where(stuck, STATUS_INFEASIBLE, st.status)))
 
-        # Flip: the entering variable stays nonbasic at its other bound.
-        fl = do_flip[:, None]
-        basis2 = torch.where(fl, basis, basis_new)
-        in_basis2 = torch.where(fl, in_basis, in_basis_new)
-        at_upper2 = torch.where(fl, at_upper_flip, at_upper_new)
-        binv2 = torch.where(fl[:, :, None], binv, binv_new)
-        xb2 = torch.where(fl, xb_new, xb_pivot)
-        gamma2 = torch.where(fl, st.gamma, gamma_piv)
-
         # Keep the pre-step state when this step finished the lane or when
         # the lane was already done (or frozen at its cap).
         skip = st.done | frozen
         keep = (finished | skip)[:, None]
         return _State(
-            basis=torch.where(keep, basis, basis2),
-            in_basis=torch.where(keep, in_basis, in_basis2),
-            at_upper=torch.where(keep, at_upper, at_upper2),
-            binv=torch.where(keep[:, :, None], binv, binv2),
-            xb=torch.where(keep, xb, xb2),
+            basis=torch.where(keep, st.basis, basis2),
+            in_basis=torch.where(keep, st.in_basis, in_basis2),
+            at_upper=torch.where(keep, st.at_upper, at_upper2),
+            binv=torch.where(keep[:, :, None], st.binv, binv2),
+            xb=torch.where(keep, st.xb, xb2),
             gamma=torch.where(keep, st.gamma, gamma2),
             it=torch.where(skip, st.it, st.it + 1),
             stall=torch.where(skip, st.stall, stall_new),
@@ -407,18 +524,128 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
             status=torch.where(skip, st.status, status_new),
         )
 
-    # One refactorization per ``chunk`` pivots (the JAX loop's cadence).
+    # ---- partial pricing (opt-in): candidate-list Devex -----------------
+    # Full pricing every ``win`` pivots decides termination (no eligible
+    # column: OPTIMAL, or INFEASIBLE in phase 1) and picks the top NC
+    # columns by Devex score (Bland's order once stalled), ties to the
+    # lower index; the pivots in between price and update Devex weights on
+    # the gathered [m, NC] block alone.  A lane with no eligible candidate
+    # idles to the next full pricing; unboundedness or phase-1 stuckness
+    # found on a candidate column is global and ends the lane at once.
+    NC = min(pp_cands, nt)
+    neg_big = torch.full((), -big_ratio, dtype=dtype, device=dev)
+
+    def refresh(st: _State, frozen):
+        """Full pricing: the lanes with no eligible column end, and every
+        lane's NC candidates (indices [B, NC], columns [B, m, NC])."""
+        ph = price(st)
+        in_phase1, piv = ph[4], ph[5]
+        red = torch.where(in_phase1[:, None], 0 * one, c) - \
+            _rows_mm(piv, A)
+        free_nb = ~st.in_basis & free_all
+        elig_inc, elig_dec = eligible(red, st.in_basis, st.at_upper,
+                                      free_nb, not_fixed)
+        elig = elig_inc | elig_dec
+        ends = ~torch.any(elig, dim=1) & ~st.done & ~frozen
+        term_status = torch.where(in_phase1, STATUS_INFEASIBLE,
+                                  STATUS_OPTIMAL)
+        use_bland = (st.stall >= stall_limit)[:, None]
+        score = torch.where(elig, red * red / st.gamma, neg_big)
+        bland = torch.where(elig, -col_ids.to(dtype), neg_big)
+        sel = torch.where(use_bland, bland, score)
+        cand_idx = torch.sort(sel, dim=1, descending=True,
+                              stable=True).indices[:, :NC]        # [B, NC]
+        A_C = A[:, cand_idx].permute(1, 0, 2)                     # [B, m, NC]
+        st = st._replace(done=st.done | ends,
+                         status=torch.where(ends, term_status, st.status))
+        return st, cand_idx, A_C
+
+    def body_candidates(st: _State, frozen, cand_idx, A_C) -> _State:
+        """One pivot of every lane priced on its candidates alone."""
+        ph = price(st)
+        in_phase1, piv = ph[4], ph[5]
+        c_C = torch.gather(c, 1, cand_idx)
+        red_C = torch.where(in_phase1[:, None], 0 * one, c_C) - \
+            _vec_mat(piv, A_C)                                    # [B, NC]
+        lo_C = torch.gather(lo, 1, cand_idx)
+        up_C = torch.gather(up, 1, cand_idx)
+        inb_C = torch.gather(st.in_basis, 1, cand_idx)
+        atu_C = torch.gather(st.at_upper, 1, cand_idx)
+        free_C = ~inb_C & ~torch.isfinite(lo_C) & ~torch.isfinite(up_C)
+        elig_inc_C, elig_dec_C = eligible(red_C, inb_C, atu_C, free_C,
+                                          (up_C - lo_C) > tol)
+        elig_C = elig_inc_C | elig_dec_C
+        any_elig_C = torch.any(elig_C, dim=1)
+
+        gamma_C = torch.gather(st.gamma, 1, cand_idx)
+        score_C = torch.where(elig_C, red_C * red_C / gamma_C, -one)
+        bland_C = torch.where(elig_C, -cand_idx, -(nt + 1))
+        use_bland = st.stall >= stall_limit
+        jc = torch.where(use_bland, torch.argmax(bland_C, dim=1),
+                         torch.argmax(score_C, dim=1))            # [B]
+        j = _take(cand_idx, jc)
+        dir_ = torch.where(_take(elig_inc_C, jc), one, -one)
+
+        w = _mat_vec(st.binv, A_C[lane_ids, :, jc])               # [B, m]
+        (basis2, in_basis2, at_upper2, binv2, xb2, do_flip, t_star,
+         unbounded, stuck, _, leave_var, safe_wr, binv_row_r) = \
+            pivot(st, ph, j, dir_, w)
+        # An idle lane (no eligible candidate) has no real entering column:
+        # its ratio test certifies nothing.
+        unbounded = unbounded & any_elig_C
+        stuck = stuck & any_elig_C
+        alpha_C = _vec_mat(binv_row_r, A_C)                       # [B, NC]
+        gamma_piv = devex(st.gamma,
+                          lambda g: st.gamma.scatter_reduce(
+                              1, cand_idx, g, "amax"),
+                          j, leave_var, safe_wr, alpha_C)
+        gamma2 = torch.where(do_flip[:, None], st.gamma, gamma_piv)
+
+        degen = t_star <= tol
+        skip = st.done | frozen
+        keep = ~any_elig_C | unbounded | stuck | skip
+        did = ~keep
+        k2 = keep[:, None]
+        status_new = torch.where(
+            unbounded, STATUS_UNBOUNDED,
+            torch.where(stuck, STATUS_INFEASIBLE, st.status))
+        return _State(
+            basis=torch.where(k2, st.basis, basis2),
+            in_basis=torch.where(k2, st.in_basis, in_basis2),
+            at_upper=torch.where(k2, st.at_upper, at_upper2),
+            binv=torch.where(k2[:, :, None], st.binv, binv2),
+            xb=torch.where(k2, st.xb, xb2),
+            gamma=torch.where(k2, st.gamma, gamma2),
+            it=torch.where(did, st.it + 1, st.it),
+            stall=torch.where(did, torch.where(degen, st.stall + 1, 0),
+                              st.stall),
+            done=st.done | ((unbounded | stuck) & ~skip),
+            status=torch.where(skip, st.status, status_new),
+        )
+
+    # One refactorization per ``chunk`` pivots (the JAX loop's cadence);
+    # with partial pricing, chunk // win windows of win pivots, each after
+    # a full pricing.
     chunk = max(8, min(refac_every, m))
+    win = max(1, min(pp_window, chunk))
     while True:
         active = ~st.done & (st.it < max_iter)
         if not bool(torch.any(active)):
             break
         frozen = ~active
-        for _ in range(chunk):
-            st = body(st, frozen)
-            if bool(torch.all(st.done | frozen)):
-                break
-        binv_ = refactorize(A, st.basis)
+        if partial_pricing:
+            for _ in range(max(1, chunk // win)):
+                st, cand_idx, A_C = refresh(st, frozen)
+                for _ in range(win):
+                    st = body_candidates(st, frozen, cand_idx, A_C)
+                if bool(torch.all(st.done | frozen)):
+                    break
+        else:
+            for _ in range(chunk):
+                st = body(st, frozen)
+                if bool(torch.all(st.done | frozen)):
+                    break
+        binv_ = _refactor(A, st.basis)
         xn_full = _nonbasic_values(lo, up, st.at_upper, st.in_basis)
         xb_ = _compute_xb(A, b, binv_, xn_full)
         a3 = active[:, None]
@@ -437,36 +664,36 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
         xn_full = _nonbasic_values(lo, up, final.at_upper, final.in_basis)
         x_full = xn_full.scatter(1, final.basis, final.xb)
         cb = torch.gather(c, 1, final.basis)
-        pi = torch.einsum("bi,bij->bj", cb, final.binv)
-        dj_full = c - pi @ A
-        obj = torch.sum(c * x_full, dim=1)
+        pi = _vec_mat(cb, final.binv)
+        dj_full = c - _rows_mm(pi, A)
+        obj = _lane_dot(c, x_full)
         # Non-finite guard: a NaN/inf objective is never OPTIMAL (the
         # evaluator counts optimal lanes into its estimate).
         status = torch.where(torch.isfinite(obj), status,
                              torch.full_like(status, STATUS_ITER_LIMIT))
-        return LPResult(
+        return _live_lanes(LPResult(
             status=status, obj=obj, y=x_full[:, :n], pi=pi,
             dj=dj_full[:, :n], cstat=cstat_full[:, :n],
             rstat=cstat_full[:, n:], basis=final.basis, binv=final.binv,
-            iters=final.it, farkas=torch.zeros_like(pi))
+            iters=final.it, farkas=torch.zeros_like(pi)), live)
 
     # ---- clean final quantities from a refactorization of the basis -----
-    binv = refactorize(A, final.basis)
+    binv = _refactor(A, final.basis)
     xn_full = _nonbasic_values(lo, up, final.at_upper, final.in_basis)
     xb = _compute_xb(A, b, binv, xn_full)
     x_full = xn_full.scatter(1, final.basis, xb)
 
     cb = torch.gather(c, 1, final.basis)
-    pi = torch.einsum("bi,bij->bj", cb, binv)                     # [B, m]
-    dj_full = c - pi @ A
-    obj = torch.sum(c * x_full, dim=1)
+    pi = _vec_mat(cb, binv)                                       # [B, m]
+    dj_full = c - _rows_mm(pi, A)
+    obj = _lane_dot(c, x_full)
 
     # Farkas ray for infeasible LPs: the phase-1 multipliers.
     lo_b = torch.gather(lo, 1, final.basis)
     up_b = torch.gather(up, 1, final.basis)
     cb1 = torch.where(xb < lo_b - 1e-7, -one,
                       torch.where(xb > up_b + 1e-7, one, 0 * one))
-    farkas = torch.einsum("bi,bij->bj", cb1, binv)
+    farkas = _vec_mat(cb1, binv)
     farkas = torch.where((status == STATUS_INFEASIBLE)[:, None], farkas,
                          0 * one)
 
@@ -477,8 +704,15 @@ def solve_lp(D, sense, d, l, u, b, *, max_iter: int = 0, tol: float = 1e-9,
     status = _certify_optimal(status, dj_full, final.in_basis,
                               final.at_upper, lo, up, c, tol)
 
-    return LPResult(
+    return _live_lanes(LPResult(
         status=status, obj=obj, y=x_full[:, :n], pi=pi, dj=dj_full[:, :n],
         cstat=cstat_full[:, :n], rstat=cstat_full[:, n:],
         basis=final.basis, binv=binv, iters=final.it, farkas=farkas,
-    )
+    ), live)
+
+
+def _live_lanes(res: LPResult, live: int) -> LPResult:
+    """The first ``live`` lanes of ``res`` (the others were padding)."""
+    if res.status.shape[0] == live:
+        return res
+    return LPResult(*(f[:live] for f in res))

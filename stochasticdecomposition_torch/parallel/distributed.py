@@ -36,6 +36,11 @@ scheduler's wall-clock limit).  The obs groups' collectives come every
 step, between the same replicated work on every rank, so they wait at
 most ``OBS_TIMEOUT``: a rank that failed alone, outside a collective,
 leaves its peers waiting that long before they fail too.
+
+Every rank leaves the groups it joined through ``shutdown`` (the CLI, the
+rank entries of ``chip_smoke.py``, the test workers): a process that exits
+with its groups alive can abort in the interpreter's exit (SIGABRT) after
+a correct run.
 """
 
 from __future__ import annotations
@@ -101,6 +106,33 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
         world_size=num_processes, rank=process_id, timeout=JOIN_TIMEOUT)
     _wave_group = dist.new_group(backend="gloo", timeout=WAVE_TIMEOUT)
     return True
+
+
+def shutdown(barrier: bool = True) -> None:
+    """Leave the process group that ``maybe_initialize`` joined: every rank
+    meets the others at a barrier on the wave group, then destroys the obs
+    groups, the wave group and the default group, in that order, and
+    forgets them.  A rank that leaves its groups to the interpreter's exit
+    can abort there (SIGABRT, ``terminate called without an active
+    exception``) after a correct run.  Every rank calls it on its way out;
+    safe to call twice, and nothing to do in one process.
+
+    ``barrier=False`` is the way out of a rank that raised: its peers may
+    wait in another collective, and the rank destroys its groups at once,
+    which fails them as its death would, instead of waiting for them."""
+    global _wave_group
+    if not dist.is_initialized():
+        return
+    if barrier:
+        dist.barrier(group=_wave_group)
+    for group in _obs_groups.values():
+        if group is not None:
+            dist.destroy_process_group(group)
+    _obs_groups.clear()
+    if _wave_group is not None:
+        dist.destroy_process_group(_wave_group)
+    _wave_group = None
+    dist.destroy_process_group()
 
 
 def process_count() -> int:

@@ -21,21 +21,22 @@ A failure on one rank must not leave the others waiting in the gather: a
 rank that fails gathers its error text instead of a result, and then every
 rank raises the same RuntimeError naming the replication.
 
-Checkpoints (``checkpoint_every``, ``checkpoint_dir``), with ``n_obs`` 1:
-each rank that runs a replication writes that replication's files itself
-(``utils/checkpoint.wave_path``).  The JAX package saves a wave's stacked
-state from one process and refuses to checkpoint across processes; here
-every mesh of more than one rep group is several processes, hence files
-per replication.  ``resume_from`` names any file of a wave: the waves
-before it are rebuilt from their replications' ``_final`` files; each
+Checkpoints (``checkpoint_every``, ``checkpoint_dir``): the lead rank of
+each rep group, its obs rank 0, writes that replication's files
+(``utils/checkpoint.wave_path``); with ``n_obs`` above 1 the group's ranks
+save at the same k and obs rank 0 gathers their blocks of the observation
+columns into the one file, at the full width.  The JAX package saves a
+wave's stacked state from one process and refuses to checkpoint across
+processes; here every mesh of more than one rank is several processes,
+hence files per replication.  ``resume_from`` names any file of a wave: the
+waves before it are rebuilt from their replications' ``_final`` files; each
 replication of that wave is rebuilt from its ``_final`` file if it has one,
 else resumes from its newest checkpoint in that directory, else starts
-afresh; the waves after it run.  Every rank reads the files of every lead
-rank, so checkpoints and resume over several nodes need a
-``checkpoint_dir`` that all the ranks share.  A replication sharded over
-obs ranks is not checkpointed (ROADMAP A24), as the JAX package refuses
-checkpoints of a mesh across processes; nor are random cost coefficients
-sharded (ROADMAP A23).
+afresh; the waves after it run.  A file holds every observation column, so
+it resumes on a mesh of any ``n_obs``: each rank keeps its block.  Every
+rank reads the files of every lead rank, so checkpoints and resume over
+several nodes need a ``checkpoint_dir`` that all the ranks share.  Random
+cost coefficients run sharded too (``core/randcost.py``).
 """
 
 from __future__ import annotations
@@ -60,16 +61,8 @@ def run_replications_meshed(solver, mesh, log=lambda s: None,
     W = mesh.n_rep
     coords = mesh.coords()
     group = None if coords is None else coords[0]
-    # Every rank refuses alike, before any work.
+    # Every rank refuses an O its obs ranks do not divide, before any work.
     shard = mesh.obs_shard(solver.caps.O)
-    if mesh.n_obs > 1 and (checkpoint_every or resume_from):
-        raise ValueError(
-            "checkpoints and resume of replications sharded over obs ranks "
-            "are not supported (ROADMAP A24); use an Rx1 mesh")
-    if mesh.n_obs > 1 and solver.pa.rv_d_cols.shape[0]:
-        raise ValueError(
-            "random cost coefficients do not run sharded over obs ranks "
-            "(ROADMAP A23); use an Rx1 mesh")
     resume_wave, resume_dir = -1, None
     if resume_from:
         resume_wave = wave_start_of(resume_from)

@@ -256,9 +256,10 @@ class SDSolver:
         records the wave in them, and adds the replication's ``_final``
         file when it ends.  ``shard`` (``parallel/distributed.ObsShard``,
         from the meshed runner) holds this rank's observation columns: every
-        obs rank of the group calls this at once, and they check at every
-        full test and at the end that they still step alike
-        (``check_lockstep``)."""
+        obs rank of the group calls this at once, and they check after a
+        resume, at every full test and at the end that they still step
+        alike (``check_lockstep``); they save at the same k, and obs rank 0
+        writes the one file, at the full width (utils/checkpoint.py)."""
         cfg = self.cfg
         t0 = time.monotonic()
         gen, boot_gen = replication_generators(cfg.RUN_SEED[rep], self.device)
@@ -287,6 +288,8 @@ class SDSolver:
             n_full_tests = extras.get("n_full_tests", 0)
             master_failures = extras.get("master_failures", 0)
             master_fails = extras.get("master_fails", 0)
+            # The obs ranks of a sharded replication read one file.
+            check_lockstep(state)
         t_setup = time.monotonic() - t0
         last_ckpt_k = state.k
 

@@ -30,6 +30,16 @@ replication's ``mesh_waveNN_repRR_kKKKKKK.npz`` on the sequential cadence
 and its ``mesh_waveNN_repRR_final.npz`` when it ends, NN the wave's first
 replication as in the JAX package's ``mesh_waveNN_*`` names.
 
+A replication sharded over obs ranks (``SDState.shard``) writes the same
+file: every obs rank of its group calls ``save_state`` at the same k, the
+ranks' blocks of the observation-axis fields (``core/state.OBS_AXIS``:
+``omega_vals``, ``omega_w``, ``delta_pib``, ``delta_piC``, ``cut_istar``,
+and ``obs_feas`` with random costs) are gathered to obs rank 0, each as its
+non-zero box, and obs rank 0 writes them at the full width O with the rest
+of the state, which every rank holds alike.  ``load_checkpoint`` into a
+sharded state keeps its rank's block of those fields, so one file resumes
+on an Rx1 or an RxO mesh (or without one) alike.
+
 A checkpoint written by the JAX package (``utils/checkpoint.py`` there)
 loads too: the fields the port carries are kept, its PRNG key and JAX-only
 fields are ignored (as ``interop.state_from_numpy`` does), and the port's own
@@ -45,8 +55,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from stochasticdecomposition_torch.core.state import SDState
+from stochasticdecomposition_torch.core.state import (
+    OBS_AXIS, SDState, obs_fields,
+)
 from stochasticdecomposition_torch.interop import _convert
 
 _HOST_PREFIX = "__host_"
@@ -74,16 +87,59 @@ def _nonzero_box(t: torch.Tensor) -> torch.Tensor:
     return t[tuple(slice(0, e) for e in ends)]
 
 
+def _gathered_boxes(state: SDState) -> Optional[dict]:
+    """Every obs rank's block of the observation-axis fields, gathered to
+    obs rank 0 as {field: (box, full shape)}: each rank sends its non-zero
+    box, and obs rank 0 places the boxes at their columns.  None on the
+    other obs ranks.  A collective of the state's obs group."""
+    sh = state.shard
+    mine = {f: _nonzero_box(getattr(state, f)).cpu().numpy()
+            for f in obs_fields(state)}
+    group_ranks = dist.get_process_group_ranks(sh.group)
+    parts = [None] * sh.n_obs if sh.lo == 0 else None
+    dist.gather_object(mine, parts, dst=group_ranks[0], group=sh.group)
+    if parts is None:
+        return None
+    width = sh.hi - sh.lo
+    out = {}
+    for f, ax in OBS_AXIS.items():
+        if f not in mine:
+            continue
+        shape = list(getattr(state, f).shape)
+        shape[ax] *= sh.n_obs
+        ext = [max(p[f].shape[d] for p in parts) for d in range(len(shape))]
+        ext[ax] = max((j * width + p[f].shape[ax]
+                       for j, p in enumerate(parts) if p[f].shape[ax]),
+                      default=0)
+        box = np.zeros(ext, mine[f].dtype)
+        for j, p in enumerate(parts):
+            at = [slice(0, e) for e in p[f].shape]
+            at[ax] = slice(j * width, j * width + p[f].shape[ax])
+            box[tuple(at)] = p[f]
+        out[f] = (box, tuple(shape))
+    return out
+
+
 def save_state(path: str, state: SDState, *, generators=(),
                pool_alpha: Optional[List[float]] = None,
                pool_beta: Optional[List[np.ndarray]] = None,
                counters: Optional[dict] = None) -> None:
     """Write ``state`` and the host extras to ``path`` (an ``.npz``).
-    ``generators`` is the replication's (observations, bootstrap) pair."""
+    ``generators`` is the replication's (observations, bootstrap) pair.
+    A state sharded over obs ranks: every obs rank of its group calls this
+    at once, and obs rank 0 writes the one file (the module docstring)."""
+    boxes = {}
+    if state.shard is not None:
+        boxes = _gathered_boxes(state)
+        if boxes is None:
+            return
     arrays = {}
     for f in _SAVED:
         v = getattr(state, f)
-        if v is None:
+        if f in boxes:
+            arrays[f] = boxes[f][0]
+            arrays[_SHAPE_PREFIX + f] = np.asarray(boxes[f][1])
+        elif v is None:
             arrays[_NONE_PREFIX + f] = np.asarray(True)
         elif isinstance(v, torch.Tensor) and v.dim():
             arrays[f] = _nonzero_box(v).cpu().numpy()
@@ -112,16 +168,35 @@ def load_state(path: str, like: SDState) -> SDState:
     return state
 
 
+def _block(arr: np.ndarray, shape: tuple, ax: int, lo: int,
+           hi: int) -> np.ndarray:
+    """Columns [lo, hi) along axis ``ax`` of the field of full ``shape``
+    saved as its leading box ``arr``."""
+    out_shape = list(shape)
+    out_shape[ax] = hi - lo
+    out = np.zeros(out_shape, arr.dtype)
+    top = min(hi, arr.shape[ax])
+    if top > lo:
+        src = [slice(0, e) for e in arr.shape]
+        src[ax] = slice(lo, top)
+        dst = [slice(0, e) for e in arr.shape]
+        dst[ax] = slice(0, top - lo)
+        out[tuple(dst)] = arr[tuple(src)]
+    return out
+
+
 def load_checkpoint(path: str, like: SDState) -> Tuple[SDState, dict]:
     """Load a checkpoint and its host extras (``generators`` as the two
     state tensors, ``device_type``, ``pool_alpha``/``pool_beta``, the
-    counters; only what the file holds).  Raises ValueError on a missing
-    field or a shape that differs from ``like``'s."""
+    counters; only what the file holds).  Into a sharded ``like`` the
+    observation-axis fields keep its block of columns.  Raises ValueError
+    on a missing field or a shape that differs from ``like``'s."""
     dev, dtype = like.candid_x.device, like.candid_x.dtype
     with np.load(path) as data:
         data = dict(data)
     from_jax = _JAX_KEY in data
     kwargs = {"shard": like.shard}
+    blocks = obs_fields(like) if like.shard is not None else ()
     for f in _SAVED:
         ref = getattr(like, f)
         if f not in data:
@@ -137,6 +212,16 @@ def load_checkpoint(path: str, like: SDState) -> Tuple[SDState, dict]:
                 "would silently mix restored and fresh state")
         arr = data[f]
         shape = tuple(int(e) for e in data.get(_SHAPE_PREFIX + f, arr.shape))
+        if f in blocks:                 # this rank's columns of the file's
+            ax, sh = OBS_AXIS[f], like.shard
+            full = list(ref.shape)
+            full[ax] *= sh.n_obs
+            if shape != tuple(full):
+                raise ValueError(
+                    f"checkpoint field {f} has shape {shape}, expected "
+                    f"{tuple(full)} (capacities/config must match)")
+            arr = _block(arr, shape, ax, sh.lo, sh.hi)
+            shape = arr.shape
         if isinstance(ref, torch.Tensor) and shape != tuple(ref.shape):
             raise ValueError(
                 f"checkpoint field {f} has shape {shape}, expected "

@@ -4,8 +4,10 @@
 ``torch.distributed`` over ``gloo`` (a ``file://`` store under the test's
 temporary directory, so that concurrent test workers never share a port):
 the CPU emulation of one process per card, as ``tests/test_multihost.py``
-emulates several hosts for the JAX package.  The meshed runs must equal the
-in-process sequential ``SDSolver.run(device="cpu")`` by
+emulates several hosts for the JAX package.  Every rank leaves its process
+groups before it exits (``distributed.shutdown``) and exits 0: a teardown
+run repeated several times must end with rc 0 on every rank.  The meshed
+runs must equal the in-process sequential ``SDSolver.run(device="cpu")`` by
 ``tests/test_mesh_runner.py``'s rules: iterations, ``optimal``,
 ``unique_omegas`` and pool sizes exact, incumbents and estimates within
 1e-8, the compromise within 1e-6; every rank returns the same results, and
@@ -223,8 +225,9 @@ def test_cli_over_two_ranks_writes_on_rank_0_only(tmp_path):
     runs = _launch("cli", 2, tmp_path)
     for r, (rc, out, err) in enumerate(runs):
         assert rc == 0, f"rank {r} failed:\n{out[-2000:]}\n{err[-4000:]}"
+        # The CLI joined the group of two and left it before returning.
         assert json.load(open(tmp_path / f"cli_rank{r}.json")) == \
-            {"rc": 0, "world": 2}
+            {"rc": 0, "world": 1}
         assert f"rank {r} of 2: cpu (CPU)" in out
         assert "--metrics-every and --time-phases are not taken" in err
     assert "Starting two-stage" in runs[0][1]
@@ -239,6 +242,35 @@ def test_cli_over_two_ranks_writes_on_rank_0_only(tmp_path):
     np.testing.assert_allclose(_numbers(mesh / "incumb.dat"),
                                _numbers(plain / "incumb.dat"),
                                rtol=1e-8, atol=1e-8)
+
+
+TEARDOWN_RUNS = 3
+
+
+def test_every_rank_exits_0_after_leaving_its_groups(tmp_path):
+    """The groups scenario (four ranks, the obs groups of a 2x2 mesh, a
+    thousand gathers, the lead ranks working on while the others leave)
+    several times in a row: every rank leaves its groups
+    (``distributed.shutdown``) and exits 0.  Before the ranks left them, a
+    rank aborted at the interpreter's exit in most such runs."""
+    for run in range(TEARDOWN_RUNS):
+        tmp = tmp_path / f"run{run}"
+        tmp.mkdir()
+        for r, (rc, out, err) in enumerate(_launch("groups", 4, tmp)):
+            assert rc == 0, f"run {run}, rank {r}: rc {rc}\n{err[-2000:]}"
+            assert f"rank {r} ok" in out
+            got = json.load(open(tmp / f"groups_rank{r}.json"))
+            g = r // 2                     # rep group: ranks 2g, 2g + 1
+            assert got["obs_sum"] == [float(4 * g + 1)] * 3
+            assert got["gathered"] == [[q, worker.GROUP_ROUNDS - 1]
+                                       for q in range(4)]
+
+
+def test_shutdown_in_one_process_does_nothing():
+    assert not torch.distributed.is_initialized()
+    distributed.shutdown()
+    distributed.shutdown(barrier=False)
+    assert distributed.process_count() == 1
 
 
 def test_cli_meshed_checkpoints_need_a_directory(tmp_path, capsys):

@@ -29,8 +29,14 @@ several blocks.  Held against the unsharded port on the same inputs:
   * the obs groups of a mesh shape are built once per process, and the two
     obs ranks of a rep group made as many collectives as each other.
 
-In one process: the refusals (an O the obs ranks do not divide, random
-costs and checkpoints over obs ranks) and the per-rank pool bytes.
+Random costs shard too (``spread_d``: two random cost coefficients;
+``obs_feas`` is split like the observation columns): one cut within 1e-9
+of the JAX package's, and runs by the same rules.  Checkpoints of a 2x2
+run of spread, resumed after observations passed rank 1's first column:
+bit-identical over 2x2, within 1e-8 over 2x1.
+
+In one process: the refusal of an O the obs ranks do not divide, a
+checkpoint loaded into each obs block, and the per-rank pool bytes.
 ``tests/test_torch_mesh.py``'s 2x2 runs of ``lands`` and ``feastest``
 shard too.  Every process is killed at its timeout.
 """
@@ -93,7 +99,8 @@ STEP_JOBS = [("lands", 30, 1, 64), ("spread", 90, 1, 120),
 # observation, and a match in the columns past 64 (obs rank 1 of 2, 2 of 4).
 CUT_CASES = [("lands", "lands", 20, 64, None),
              ("spread", "spread", 70, 120, None),
-             ("spread_match", "spread", 70, 120, 66)]
+             ("spread_match", "spread", 70, 120, 66),
+             ("spread_d", "spread_d", 70, 120, None)]
 RUNS = [
     _spec("spread", MAX_ITER=100, MULTIPLE_REP=2, COMPROMISE_PROB=True),
     _spec("pgp2like", MAX_ITER=60, MULTIPLE_REP=2),
@@ -102,7 +109,15 @@ RUNS = [
     # RUN_SEED entries 2 and 3: candidates without tied dual vertices.
     _spec("lands", "lands_lp", MAX_ITER=40, MULTIPLE_REP=2, MASTER_TYPE=0,
           RUN_SEED=SDConfig().RUN_SEED[2:]),
+    # Random costs: obs_feas and the basis pool's sums over the ranks.
+    _spec("spread_d", MAX_ITER=300, MULTIPLE_REP=2),
 ]
+# Checkpoints of a sharded run, resumed over 2x2 and 2x1: at MAX_ITER 300
+# (O = 384) spread's observations pass rank 1's first column (192) before
+# the second checkpoint, at k = 2 * RESUME_EVERY.
+RESUME_EVERY = 100
+RESUME = {**_spec("spread", "spread_resume", MAX_ITER=300, MULTIPLE_REP=2),
+          "every": RESUME_EVERY}
 CLI_RUN = ["-p", "lands", "-m", "2", "-c", "1", "--max-iter", "30", "-e",
            "0", "--device", "cpu"]
 
@@ -184,7 +199,7 @@ def obs_run(tmp_path_factory):
     plan = {"cuts": [], "steps": [], "runs": RUNS, "epsilons": EPSILONS,
             "boot_seed": BOOT_SEED, "boot_reps": BOOT_REPS,
             "cli": CLI_RUN + ["--mesh", "2x2", "--distributed"],
-            "lockstep": _spec("lands", MAX_ITER=20)}
+            "lockstep": _spec("lands", MAX_ITER=20), "resume": RESUME}
     for tag, name, k, max_iter, again in CUT_CASES:
         solver, state = _port_steps(name, k, 1, max_iter)
         fields = _numpy_fields(state)
@@ -284,9 +299,14 @@ def test_one_cut_split_over_ranks(obs_run, case, name, k, max_iter, again,
     for f, axis in OBS_AXIS.items():
         assert _rel(_joined(arrays, f"{tag}/{f}", axis),
                     getattr(want, f)) <= 1e-12, f
-    if name == "spread":     # the pool spans more than one block
+    if name.startswith("spread"):   # the pool spans more than one block
         assert want.omega_cnt > O // 2
+    if name == "spread":             # and so do the rays' cuts
         assert feas_alpha.shape[0] > O // 2
+    if pa_randcost(solver):          # obs_feas split like the columns
+        np.testing.assert_array_equal(_joined(arrays, f"{tag}/obs_feas", 1),
+                                      want.obs_feas.numpy())
+        assert want.basis_cnt >= 1
     if again is not None:    # found in another rank's columns, not added
         assert want.omega_cnt == int(fields["omega_cnt"])
         assert int(want.omega_w[again]) == int(fields["omega_w"][again]) + 1
@@ -387,10 +407,87 @@ def test_meshed_run_matches_sequential(obs_run, job):
         np.testing.assert_allclose(got[0]["average_x"], seq.average_x,
                                    rtol=1e-6, atol=1e-8)
         assert all(g["compromise_x"] is None for g in got[1:])
-    if job["tag"] == "spread":
+    if job["tag"] in ("spread", "spread_d"):
         assert min(r.unique_omegas for r in seq.replications) > \
-            SDSolver(port_problem("spread"), SDConfig(**job["cfg"]),
+            SDSolver(port_problem(job["name"]), SDConfig(**job["cfg"]),
                      device="cpu").caps.O // 2
+
+
+def pa_randcost(solver):
+    return solver.pa.rv_d_cols.shape[0] > 0
+
+
+def test_sharded_resume_is_bit_identical_and_resumes_on_2x1(obs_run):
+    """A24: a 2x2 run of spread checkpoints every RESUME_EVERY samples; what
+    a run killed after two checkpoints of each replication leaves resumes
+    over 2x2 bit for bit, and over 2x1 within tests/test_mesh_runner.py's
+    rules; the files hold every observation column (the full O)."""
+    tmp, ranks = obs_run
+    whole = [out["resume/whole"] for out, _ in ranks]
+    for w in whole[1:]:
+        assert w["replications"] == whole[0]["replications"]
+    reps = whole[0]["replications"]
+    solver = worker.solver_for(RESUME)
+    O = solver.caps.O
+    expected = []
+    for r in reps:
+        expected.append(f"mesh_wave00_rep{r['rep']:02d}_final.npz")
+        expected += [f"mesh_wave00_rep{r['rep']:02d}_k{k:06d}.npz"
+                     for k in range(RESUME_EVERY, r["iterations"] + 1,
+                                    RESUME_EVERY)]
+    assert ranks[0][0]["resume/files"] == sorted(expected)
+    kept = ranks[0][0]["resume/kept"]
+    assert kept == [f"mesh_wave00_rep{r:02d}_k{k:06d}.npz"
+                    for r in (0, 1) for k in (100, 200)]
+    for name in kept[1::2]:            # the files the resumes start from
+        with np.load(tmp / "resume_whole" / name) as f:
+            assert int(f["omega_cnt"]) > O // 2
+            assert list(f["__host_shape_delta_pib"]) == [solver.caps.L, O]
+            assert f["omega_vals"].shape[0] > O // 2
+    for out, _ in ranks:
+        assert out["resume/2x2"]["replications"] == reps
+    _compare(SDSolver(port_problem("spread"), SDConfig(**RESUME["cfg"]),
+                      device="cpu").run(), reps)
+    got = ranks[0][0]["resume/2x1"]["replications"]
+    for out, _ in ranks[1:]:
+        assert out["resume/2x1"]["replications"] == got
+    for a, b in zip(got, reps):
+        assert (a["iterations"], a["optimal"], a["unique_omegas"],
+                a["pool_sizes"]) == (b["iterations"], b["optimal"],
+                                     b["unique_omegas"], b["pool_sizes"])
+        np.testing.assert_allclose(a["incumb_x"], b["incumb_x"],
+                                   rtol=1e-8, atol=1e-8)
+        np.testing.assert_allclose(a["incumb_est"], b["incumb_est"],
+                                   rtol=1e-8, atol=1e-8)
+
+
+def test_a_checkpoint_loads_into_each_obs_block(tmp_path):
+    """One file, written unsharded, loads into either obs block of a 1x2
+    mesh: each block holds its columns of the five observation-axis
+    fields, and every other field whole."""
+    from stochasticdecomposition_torch.utils.checkpoint import (
+        load_state, save_state,
+    )
+
+    solver, state = _port_steps("spread", 90, 1, 120)
+    path = str(tmp_path / "spread.npz")
+    save_state(path, state)
+    O = state.omega_w.shape[0]
+    for lo, hi in ((0, O // 2), (O // 2, O)):
+        like = init_state(solver.pa, solver.caps, solver.cfg,
+                          solver.mean_sol, ObsShard(lo, hi, 2))
+        got = load_state(path, like)
+        assert got.shard == like.shard
+        want = worker.shard_state(state, ObsShard(lo, hi, 2))
+        for f in state._fields:
+            if f in ("shard", "lane_iters"):
+                continue
+            a, b = getattr(got, f), getattr(want, f)
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), f
+            else:
+                assert a == b, f
+    assert state.omega_cnt > O // 2
 
 
 def test_cli_over_a_2x2_mesh_matches_one_process(obs_run, tmp_path):
@@ -433,20 +530,13 @@ def test_refusals_and_per_rank_bytes():
     assert Mesh(1, 1, 1, 0).obs_shard(128) is None
     assert Mesh(1, 2, 2, 1).obs_shard(128) == ObsShard(64, 128, 2)
     # Every rank refuses before any work (no process group is needed).
+    # Checkpoints, resume and random costs over obs ranks run (the 2x2
+    # runs above); an O the obs ranks do not divide is refused.
     cfg = dict(MAX_ITER=20, EVAL_FLAG=False)
     lands = SDSolver(port_problem("lands"), SDConfig(**cfg), device="cpu")
-    mesh = Mesh(1, 2, 2, 0)
-    with pytest.raises(ValueError, match="ROADMAP A24"):
-        run_replications_meshed(lands, mesh, checkpoint_every=5,
-                                checkpoint_dir="unused")
-    with pytest.raises(ValueError, match="ROADMAP A24"):
-        run_replications_meshed(lands, mesh, resume_from="unused.npz")
     with pytest.raises(ValueError, match="not divisible"):
-        run_replications_meshed(lands, Mesh(1, 3, 3, 0))
-    randd = SDSolver(port_problem("randd_s21"), SDConfig(**cfg),
-                     device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A23"):
-        run_replications_meshed(randd, mesh)
+        run_replications_meshed(lands, Mesh(1, 3, 3, 0), checkpoint_every=5,
+                                checkpoint_dir="unused")
 
     # The pool bytes of one rank: the obs-axis fields at O / n_obs, the
     # [L, O, 1] delta_piC placeholder counted, as the state allocates them.

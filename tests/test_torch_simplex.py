@@ -71,9 +71,33 @@ def _port(D, sense, d, l, u, b, **kw):
                          t(l), t(u), t(b)[None], **kw), 0)
 
 
-def _jax(D, sense, d, l, u, b):
+def _jax(D, sense, d, l, u, b, **kw):
     return jax_solve_lp(jnp.array(D), jnp.array(sense), jnp.array(d),
-                        jnp.array(l), jnp.array(u), jnp.array(b))
+                        jnp.array(l), jnp.array(u), jnp.array(b), **kw)
+
+
+# The JAX package's partial-pricing cases (tests/test_simplex.py:74-85):
+# a small window and candidate list force many full pricings and idle
+# pivots.
+PP = dict(partial_pricing=True, pp_window=3, pp_cands=4)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_partial_pricing_matches_jax(seed):
+    """Candidate-list Devex: the JAX package's statuses and pivot counts on
+    the same LPs, objectives within 1e-9, and the full-pricing optimum."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(6):
+        lp = _random_lp(rng)
+        out, ref = _port(*lp, **PP), _jax(*lp, **PP)
+        assert int(out.status) == int(ref.status)
+        assert int(out.iters) == int(ref.iters)
+        if int(ref.status) == STATUS_OPTIMAL:
+            assert _close(float(out.obj), float(ref.obj), OBJ_RTOL)
+            assert _close(float(out.obj), float(_port(*lp).obj), OBJ_RTOL)
+            D, d = lp[0], lp[2]
+            resid = d - out.pi.numpy() @ D - out.dj.numpy()
+            assert np.max(np.abs(resid)) < 1e-7
 
 
 def _close(a, b, rtol):
@@ -136,6 +160,53 @@ def test_lanes_solve_like_single_lps():
             assert _close(float(res.obj[i]), float(one.obj), 1e-12)
 
 
+LANE_COUNTS = (1, 2, 16, 64)
+
+
+def _lands_master_lp():
+    """The first master LP of lands' LP master (MASTER_TYPE 0) from the
+    JAX package's PRNGKey(3) state, 16 x 5 (tests/test_torch_masters.py):
+    its cost row equals its second constraint row, so its Devex pricing
+    ties exactly and the last bit of a pricing product picks the column."""
+    import jax
+
+    from stochasticdecomposition_torch.config import MASTER_LP
+    from stochasticdecomposition_torch.core.master import master_lp_data
+    from torch_common import jax_init, to_port_state
+
+    js = jax_solver("lands", MAX_ITER=64, MASTER_TYPE=MASTER_LP)
+    pa = stage_problem(port_problem("lands"), CPU)
+    ps = to_port_state(jax_init(js.pa, js.caps, js.cfg, js.mean_sol,
+                                jax.random.PRNGKey(3)))
+    D, sense, c, lo, hi, b = master_lp_data(pa, ps, ps.k + 1)
+    return D.numpy(), sense.numpy(), c.numpy(), lo.numpy(), hi.numpy(), \
+        b.numpy()
+
+
+@pytest.mark.parametrize("case", ["lands_master", "random_1", "random_2"])
+def test_a_lane_does_not_depend_on_the_lane_count(case):
+    """Lane 0 of an LP solved alone and among 1, 15 and 63 copies: the
+    same pivots, basis and bits in every field.  On the lands master LP
+    the JAX package takes 5 pivots; so does every width here."""
+    if case == "lands_master":
+        lp = _lands_master_lp()
+    else:
+        lp = _random_lp(np.random.default_rng(int(case[-1])))
+    D, sense, d, l, u, b = (torch.as_tensor(np.asarray(a)) for a in lp)
+    sense = sense.to(torch.int64)
+    lanes = []
+    for W in LANE_COUNTS:
+        res = solve_lp(D, sense, d[None].expand(W, -1), l, u,
+                       b[None].expand(W, -1))
+        lanes.append(lane(res, 0))
+    for W, got in zip(LANE_COUNTS[1:], lanes[1:]):
+        for f, a, g in zip(lanes[0]._fields, lanes[0], got):
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(g)), \
+                (W, f)
+    if case == "lands_master":
+        assert int(lanes[0].iters) == int(_jax(*lp).iters) == 5
+
+
 def test_dual_sign_convention():
     inf = np.inf
     out = _port([[1.0]], [-1], [-1.0], [0.0], [inf], [2.0])
@@ -166,13 +237,10 @@ def test_farkas_certificate():
     assert ray @ np.array([5.0, 3.0]) > 1e-9
 
 
-def test_unported_options_raise():
-    """partial_pricing is not ported; pivot_dtype is accepted and solved in
-    f64 (the same result), and lite gives the full solve's status and
-    objective."""
+def test_pivot_dtype_and_lite_options():
+    """pivot_dtype is accepted and solved in f64 (the same result), and lite
+    gives the full solve's status and objective."""
     lp = _random_lp(np.random.default_rng(1))
-    with pytest.raises(NotImplementedError):
-        _port(*lp, partial_pricing=True)
     full = _port(*lp)
     f32 = _port(*lp, pivot_dtype=torch.float32)
     for a, b in zip(full, f32):

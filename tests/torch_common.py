@@ -59,10 +59,12 @@ RANDD = {
 }
 
 
-# An instance whose draws are almost all distinct (4^7 scenarios: five
-# random RHS rows and two random technology entries), so that a run's
-# observations fill more than one obs block of a sharded pool.
-SPREAD = {"spread": dict(seed=4, n_rv=5, support=4, rand_C=2)}
+# Instances whose draws are almost all distinct (4^7 scenarios: five
+# random RHS rows and two random technology entries, or, in ``spread_d``,
+# two random cost coefficients), so that a run's observations fill more
+# than one obs block of a sharded pool.
+SPREAD = {"spread": dict(seed=4, n_rv=5, support=4, rand_C=2),
+          "spread_d": dict(seed=4, n_rv=5, support=4, rand_d=2)}
 
 
 def synthetic_spec(name):

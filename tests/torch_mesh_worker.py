@@ -21,7 +21,13 @@ Scenarios:
   cli   (2 ranks) — ``cli.main(CLI_RUN + CLI_MESH)``, each rank with its own
         output directory ``<outdir>/cli_rank<R>``; the CLI joins the group
         itself (``--distributed``) from COORDINATOR_ADDRESS, NUM_PROCESSES
-        and PROCESS_ID.
+        and PROCESS_ID, and leaves it before it returns.
+  groups (4 ranks) — ``run_groups``: the groups and the many gathers of
+        the main scenario in a few seconds; before the ranks left their
+        groups, one run in two or more ended with a rank aborting at exit
+        (SIGABRT) after its work.
+
+Every rank leaves its groups (``distributed.shutdown``) before it exits.
 """
 
 import glob
@@ -50,6 +56,8 @@ CLI_MESH = ["--mesh", "2x1", "--distributed", "--metrics-every", "5"]
 CKPT_EVERY = 10
 EVAL_LANES = 64
 EVAL_SEED = 7
+GROUP_ROUNDS = 1000
+LEAD_SECONDS = 0.2
 
 
 def solver_for(name, cfg_kw):
@@ -143,6 +151,25 @@ def run_fail(rank, outdir):
     return {}
 
 
+def run_groups(rank, outdir):
+    """The groups of the main scenario and its traffic, without the runs:
+    the obs groups of a 2x2 mesh and one ``obs_sum`` on each, then
+    GROUP_ROUNDS gathers on the wave group; the two lead ranks then work on
+    (LEAD_SECONDS) while the others leave."""
+    import time
+
+    from stochasticdecomposition_torch.parallel import distributed
+    from stochasticdecomposition_torch.parallel.mesh import make_mesh
+
+    shard = make_mesh(2, 2).obs_shard(64)
+    total = distributed.obs_sum(torch.full((3,), float(rank)), shard)
+    for i in range(GROUP_ROUNDS):
+        gathered = distributed.all_gather((rank, i))
+    if rank < 2:
+        time.sleep(LEAD_SECONDS)
+    return {"obs_sum": total.tolist(), "gathered": gathered}
+
+
 def run_cli(rank, outdir):
     from stochasticdecomposition_torch import cli
     from stochasticdecomposition_torch.parallel.distributed import (
@@ -151,6 +178,7 @@ def run_cli(rank, outdir):
 
     rc = cli.main(CLI_RUN + CLI_MESH +
                   ["-o", os.path.join(outdir, f"cli_rank{rank}")])
+    # The CLI left the group it joined: one process again.
     return {"rc": rc, "world": process_count()}
 
 
@@ -159,7 +187,7 @@ def main():
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
     from stochasticdecomposition_torch.parallel.distributed import (
-        maybe_initialize, process_count,
+        maybe_initialize, process_count, shutdown,
     )
     if scenario == "cli":
         os.environ.update(COORDINATOR_ADDRESS=f"file://{store}",
@@ -169,9 +197,10 @@ def main():
                                 num_processes=world, process_id=rank)
         assert process_count() == world
     out = {"main": run_main, "fail": run_fail,
-           "cli": run_cli}[scenario](rank, outdir)
+           "cli": run_cli, "groups": run_groups}[scenario](rank, outdir)
     with open(os.path.join(outdir, f"{scenario}_rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
+    shutdown()
     print(f"rank {rank} ok", flush=True)
 
 

@@ -23,6 +23,11 @@ The plan's parts, in order (every rank takes part in each):
              ``bootstrap_bounds``/``full_test`` on injected resampling
              draws (``<outdir>/<job>_boot.npy``) over an EPSILON sweep;
   runs     — ``SDSolver.run(mesh=)`` over a 2x2 mesh;
+  resume   — the plan's ``resume`` run over a 2x2 mesh with a checkpoint
+             every ``resume.every`` samples (``<outdir>/resume_whole``),
+             then, from what a run killed after its first two checkpoints
+             of each replication would have left, resumed over a 2x2 mesh
+             and over a 2x1 mesh (each in its own directory);
   cli      — ``cli.main(plan's arguments + ["-o", <outdir>/cli_rank<R>])``;
   lockstep — a run whose obs rank 1 reports a perturbed lockstep digest:
              every rank must raise (its message is recorded);
@@ -57,20 +62,25 @@ def solver_for(spec):
 
 
 def shard_state(state, shard):
-    """``state`` holding only ``shard``'s observation columns."""
+    """``state`` holding only ``shard``'s observation columns (with random
+    costs ``obs_feas``'s too)."""
     if shard is None:
         return state
     lo, hi = shard.lo, shard.hi
+    blocks = {}
+    if state.obs_feas.shape[1] == state.omega_w.shape[0]:
+        blocks["obs_feas"] = state.obs_feas[:, lo:hi].clone()
     return state._replace(
         omega_vals=state.omega_vals[lo:hi].clone(),
         omega_w=state.omega_w[lo:hi].clone(),
         delta_pib=state.delta_pib[:, lo:hi].clone(),
         delta_piC=state.delta_piC[:, lo:hi].clone(),
         cut_istar=state.cut_istar[:, lo:hi].clone(),
-        shard=shard)
+        shard=shard, **blocks)
 
 
-OBS_FIELDS = ("omega_vals", "omega_w", "delta_pib", "delta_piC", "cut_istar")
+OBS_FIELDS = ("omega_vals", "omega_w", "delta_pib", "delta_piC", "cut_istar",
+              "obs_feas")
 REPLICATED = ("candid_x", "incumb_x", "incumb_est", "candid_est",
               "quad_scalar", "pi_ratio", "sigma_pib", "sigma_piC",
               "lambda_vals", "cut_alpha", "cut_beta", "cut_mask", "pi_cuts")
@@ -90,19 +100,23 @@ def state_record(state, tag, arrays):
 
 
 def one_cut(pa, state, w, k, tol):
-    """The cut test_torch_cuts.py makes, on a (sharded) port state."""
+    """The cut test_torch_cuts.py makes (test_torch_randcost.py's with
+    random costs), on a (sharded) port state."""
     from stochasticdecomposition_torch.core.cuts import add_cut, form_cut
+    from stochasticdecomposition_torch.core.step import problem_path
     from stochasticdecomposition_torch.core.update import (
-        calc_omega, omega_row, stochastic_updates, warm_solve_subproblem,
+        calc_omega, omega_row, warm_solve_subproblem,
     )
 
+    path = problem_path(pa)
     state = state._replace(k=k)
     state, o_idx, new_o = calc_omega(state, w, tol)
     res, state = warm_solve_subproblem(pa, state, state.candid_x,
                                        omega_row(state, o_idx))
-    state, _ = stochastic_updates(pa, state, res, o_idx, new_o, k, tol)
+    state, _ = path.updates(pa, state, res, o_idx, new_o, k, tol)
     parts, state = form_cut(pa, state, state.candid_x, k, dual_stability=True,
-                            pi_eval_start=0, pi_cycle=1, scan_len=256)
+                            pi_eval_start=0, pi_cycle=1, scan_len=256,
+                            argmax=path.argmax, accumulate=path.accumulate)
     state, slot = add_cut(pa, state, parts, k, incumbent=False, tol=tol)
     return parts, state, slot
 
@@ -211,6 +225,42 @@ def run_runs(plan, out):
             solver_for(job).run(mesh=make_mesh(2, 2)))
 
 
+def run_resume(plan, out):
+    """Checkpoints of a run over a 2x2 mesh, and its resume over 2x2 and
+    2x1 from what a run killed after two checkpoints would have left."""
+    import glob
+    import shutil
+
+    import torch.distributed as dist
+
+    from stochasticdecomposition_torch.parallel.mesh import make_mesh
+
+    job = plan["resume"]
+    every = job["every"]
+    solver = solver_for(job)
+    root = plan["outdir"]
+    whole_dir = os.path.join(root, "resume_whole")
+    out["resume/whole"] = result_json(solver.run(
+        mesh=make_mesh(2, 2), checkpoint_every=every,
+        checkpoint_dir=whole_dir))
+    keep = [p for rep in range(solver.cfg.MULTIPLE_REP)
+            for p in sorted(glob.glob(os.path.join(
+                whole_dir, f"mesh_wave00_rep{rep:02d}_k*.npz")))[:2]]
+    out["resume/files"] = sorted(os.listdir(whole_dir))
+    out["resume/kept"] = [os.path.basename(p) for p in keep]
+    for shape in ("2x2", "2x1"):
+        d = os.path.join(root, f"resume_{shape}")
+        if dist.get_rank() == 0:
+            os.makedirs(d)
+            for p in keep:
+                shutil.copy(p, d)
+        dist.barrier()
+        out[f"resume/{shape}"] = result_json(solver.run(
+            mesh=make_mesh(*(int(v) for v in shape.split("x"))),
+            checkpoint_every=every, checkpoint_dir=d,
+            resume_from=os.path.join(d, os.path.basename(keep[0]))))
+
+
 def run_lockstep(plan, out):
     from stochasticdecomposition_torch import runner
     from stochasticdecomposition_torch.parallel.mesh import make_mesh
@@ -242,7 +292,7 @@ def main():
     torch.set_num_threads(1)
     from stochasticdecomposition_torch import cli
     from stochasticdecomposition_torch.parallel.distributed import (
-        maybe_initialize,
+        maybe_initialize, shutdown,
     )
 
     assert maybe_initialize(coordinator_address=f"file://{store}",
@@ -254,6 +304,7 @@ def main():
     run_cuts(plan, out, arrays)
     run_steps(plan, out, arrays)
     run_runs(plan, out)
+    run_resume(plan, out)
     out["cli_rc"] = cli.main(plan["cli"] +
                              ["-o", os.path.join(outdir, f"cli_rank{rank}")])
     run_lockstep(plan, out)
@@ -261,6 +312,7 @@ def main():
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
+    shutdown()
     print(f"rank {rank} ok", flush=True)
 
 
