@@ -48,8 +48,12 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 The checkpoints' write time and bytes are reported apart
                 (``checkpoint_seconds``, ``sd_seconds_without_checkpoints``).
   4. pgp2like — the same, without checkpoints.
-  5. stormlike — default capacities, a fixed 12 iterations: every LP
-                optimal, every cut and master solve certified.
+  5. stormlike — default capacities, a fixed 6 iterations: every LP
+                optimal, every cut and master solve certified.  (12 before
+                phase 19, which adds 3-4 minutes on an H100 and took the
+                whole script there to 1068 s of its 1200 s limit; phase 19
+                runs stormlike to the certified stop at SAMPLE_INCREMENT
+                64.)
   6. randc    — random technology coefficients (parse_synthetic with
                 rand_C=2) at the default capacities to the certified stop:
                 the [L, O, 2] delta_piC table (614 MB), peak memory, exact
@@ -171,13 +175,42 @@ Each phase prints one JSON line with its seconds; any failure exits non-zero
                 card's name and power limit; the result fields in which the
                 first 8 lanes' bits differ between the two lane counts.
                 (It runs right after phase 9, on phase 8's solver.)
+ 19. suite    — the experiment drivers, after phase 17.
+     stormlike_b64_stop, ssnlike_b64_stop — ``suite_to_stop.run`` (the
+                port's scripts/suite_to_stop.py) at SAMPLE_INCREMENT 64,
+                tolerance l, CHECK_EVERY 4, pools derived from MAX_ITER
+                4096, then its steady rate (3 untimed and 5 timed calls of
+                the step from a fresh state): a statistical stop, no
+                uncertified master, launches = the cuts formed in both
+                runs; the kernel on the final height table (argmax_at_stop);
+                the incumbent evaluated on 512 observations (EVAL_ERROR 0):
+                a finite UB, no lane dropped, within EVAL_LIMIT of the LB
+                estimate.  Samples to stop, pools, cuts, quad_scalar, SD
+                seconds, samples/s (to the stop and steady), seconds and
+                lane pivots (max, median) per call of the step, pivots per
+                LP, the state's bytes beside ``estimate_pool_bytes``, peak
+                memory, the card's name and power limit.
+     sweep_grid — ``sweep.main`` (the port's root sweep.py) in process on
+                cep1like and baa99like, tolerance n, SAMPLE_INCREMENT 1 and
+                16, no evaluation, ``--parity 100000``: four rows, each
+                certified with its exact gap within GAP_LIMIT, no ERROR
+                row, both files parsed, launches = cuts formed; then the
+                (cep1like, n, 16) row again in a fresh solver
+                (``sweep.run_one``): incumbent, estimate, pools and
+                iterations bit for bit the grid's (scripts/ci_checks.py's
+                rerun rule).
+     Phase 19 takes 3-4 minutes on an H100, most of it cold stormlike
+     LPs (the set-up's mean-value LP, the steady rate's first calls from
+     a fresh state, the evaluator's mean observation), and leaves the
+     whole script 130-180 s inside its 1200 s; PERF.md section 5 says
+     what could go if that margin shrinks.
 
 Every SD phase sets the argmax kernel's launch count to 0 just before it
 drives the path and requires, just after, as many launches as cuts formed
-(none on the random-cost phases); phases 3-14 then time the kernel on the
-height table of their final state (the n_sel its pools reached) and hold
-it there against the plain version.  Peak device memory is reported per
-phase.
+(none on the random-cost phases); phases 3-14 and 19's stops then time the
+kernel on the height table of their final state (the n_sel its pools
+reached) and hold it there against the plain version.  Peak device memory
+is reported per phase.
 
 Then a line with the card as nvidia-smi gives it, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.
@@ -201,7 +234,7 @@ import torch
 # Extensive-form optima of the finite-support instances (RESULTS.md §1).
 OPTIMA = {"lands": 382.0222, "pgp2like": 113.3000}
 GAP_LIMIT = 0.01
-STORM_ITERS = 12
+STORM_ITERS = 6                  # phase 5; see the docstring
 STORM_B8_STEPS = 6
 EVAL_LIMIT = 0.01                # UB against the exact objective
 STORM_EVAL_LANES = 512
@@ -236,6 +269,21 @@ STOCH_CHECK_OBS = 32
 PP_LANES = (8, 512)
 PP_SEED = 11
 PP_OBJ_RTOL = 1e-9
+# Phase 19: the suite's largest families to the certified stop through
+# suite_to_stop.run (pools derived from SUITE_MAX_ITER, the script's
+# default), each incumbent evaluated on SUITE_EVAL_OBS observations; then
+# the sweep grid on two small families with the exact gap, and one of its
+# rows twice in fresh solvers.
+SUITE_STOPS = (("stormlike", 64), ("ssnlike", 64))
+SUITE_TOL = "l"
+SUITE_CHECK_EVERY = 4
+SUITE_MAX_ITER = 4096
+SUITE_EVAL_OBS = 512
+GRID_MAX_ITER = 1500             # the sweep's default
+GRID = ["-p", "cep1like,baa99like", "-t", "n", "-s", "1,16", "-e", "0",
+        "--parity", "100000", "--max-iter", str(GRID_MAX_ITER)]
+GRID_ROWS = 4
+RERUN = ("cep1like", "n", 16)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 # The last four: the full table and one rank's columns of it over 2 and 4
 # obs ranks, and a shard width that splits oddly (8-byte cp.async rows).
@@ -1762,6 +1810,149 @@ def batched_cfg(name, batch):
                     MAX_OMEGA=n, MAX_LAMBDA=512, MAX_SIGMA=512)
 
 
+def phase_suite_stop(name, si, dev, flush, smi):
+    """Phase 19a: suite instance ``name`` at SAMPLE_INCREMENT ``si`` to the
+    certified stop through ``suite_to_stop.run`` (tolerance SUITE_TOL,
+    CHECK_EVERY SUITE_CHECK_EVERY, pools derived from SUITE_MAX_ITER), its
+    steady rate included: a statistical stop, no uncertified master, one
+    kernel launch per cut formed (the replication's and the steady-rate
+    run's), the kernel on the final height table equal to its plain
+    version; then the incumbent evaluated on SUITE_EVAL_OBS observations
+    (EVAL_ERROR 0): a finite UB, no lane dropped, within EVAL_LIMIT of the
+    LB estimate.  Peak memory beside ``estimate_pool_bytes``."""
+    from stochasticdecomposition_torch import suite_to_stop
+    from stochasticdecomposition_torch.ops import argmax
+
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    det = {}
+    rec = Recorder(lanes=True)
+    argmax.launches = 0
+    line = suite_to_stop.run(name, tol=SUITE_TOL, si=si,
+                             max_iter=SUITE_MAX_ITER,
+                             check_every=SUITE_CHECK_EVERY, device=dev,
+                             metrics=rec, details=det)
+    torch.cuda.synchronize()
+    launches = argmax.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    solver, res = det["solver"], det["result"]
+    steady_cuts = det["steady_state"].cut_cnt
+    steps = res.iterations // si
+    # A call of the step is CHECK_EVERY steps; lane_iters holds the last
+    # step's.  The first call's seconds would include the solver's set-up.
+    call_s = np.diff(rec.times)[1:]
+    out = {"line": line, "steps": steps, "sd_seconds": res.time_total,
+           "seconds_per_step": res.time_total / max(steps, 1),
+           "step_call_seconds_after_first": call_s.tolist(),
+           "lane_pivots_max_per_call": [int(np.max(x)) for x in rec.lanes],
+           "lane_pivots_median_per_call": [float(np.median(x))
+                                           for x in rec.lanes],
+           "steady_seconds_per_step": si / line["samples_per_s_steady"],
+           "state_bytes": sum(v.nbytes for v in rec.last
+                              if isinstance(v, torch.Tensor)),
+           "launches": launches, "cuts_formed": res.cuts_formed,
+           "steady_cuts_formed": steady_cuts, "lps": res.lp_count,
+           "pivots_per_lp": res.lp_pivots / max(res.lp_count, 1),
+           "ipm_iters_per_master": res.qp_iters / max(steps, 1),
+           "full_tests": res.full_tests,
+           "master_failures": res.master_failures,
+           "caps": solver.caps._asdict(),
+           "pool_bytes_estimate": solver.pool_bytes["total"],
+           "peak_allocated_bytes": peak,
+           "peak_above_start_bytes": peak - start, "nvidia_smi": smi}
+    if not line["stopped_statistically"]:
+        fail(f"{name}: no statistical stop before {SUITE_MAX_ITER} samples "
+             f"({out})")
+    if res.master_failures:
+        fail(f"{name}: {res.master_failures} uncertified master solves")
+    if launches != res.cuts_formed + steady_cuts or launches <= 0:
+        fail(f"{name}: {launches} kernel launches for {res.cuts_formed} + "
+             f"{steady_cuts} cuts formed")
+    if not np.all(np.isfinite(res.incumb_x)):
+        fail(f"{name}: non-finite incumbent")
+    out["argmax_at_stop"] = kernel_at_stop(solver, rec.last, flush)
+    del det, rec
+    solver.cfg.EVAL_ERROR = 0.0
+    solver.cfg.EVAL_BATCH = SUITE_EVAL_OBS
+    t = time.monotonic()
+    ev = solver.evaluate_x(res.incumb_x, max_obs=SUITE_EVAL_OBS)
+    torch.cuda.synchronize()
+    row = eval_fields(solver, ev, time.monotonic() - t)
+    row["ub_vs_lb"] = abs(ev.mean - res.incumb_est) / abs(res.incumb_est)
+    out["eval"] = row
+    if not np.isfinite(ev.mean) or ev.dropped or \
+            ev.count != SUITE_EVAL_OBS or row["ub_vs_lb"] > EVAL_LIMIT:
+        fail(f"{name}: evaluation {row} (LB {res.incumb_est})")
+    return out
+
+
+def phase_suite_grid(dev):
+    """Phase 19b: ``sweep.main(GRID)`` in process, GRID_ROWS rows: each
+    certified with its exact gap within GAP_LIMIT, no ``ERROR`` row, the
+    TSV and JSONL files parsed, one kernel launch per cut formed; then the
+    grid's RERUN row again in a fresh solver (``sweep.run_one``): the
+    incumbent, estimate and pools bit for bit the grid's."""
+    from stochasticdecomposition_torch import sweep
+    from stochasticdecomposition_torch.ops import argmax
+
+    results = {}
+    run_one = sweep.run_one
+
+    def kept_run_one(name, tol, batch, *a, **kw):
+        got = run_one(name, tol, batch, *a, **kw)
+        results[name, tol, batch] = got[0]
+        return got
+
+    text = io.StringIO()
+    argmax.launches = 0
+    t = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp, \
+            swapped(sweep, "run_one", kept_run_one), \
+            contextlib.redirect_stdout(text):
+        rc = sweep.main(GRID + ["-o", tmp])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t
+        tsv = open(os.path.join(tmp, "sweep_results.tsv")).read()
+        jsonl = [json.loads(ln) for ln in
+                 open(os.path.join(tmp, "sweep_results.jsonl"))]
+    launches = argmax.launches
+    cuts = sum(r.cuts_formed for r in results.values())
+    header, *rows = tsv.splitlines()
+    out = {"rc": rc, "seconds": seconds, "launches": launches,
+           "cuts_formed": cuts, "rows": jsonl}
+    if rc != 0 or header + "\n" != sweep.HEADER or len(rows) != GRID_ROWS \
+            or any("ERROR" in r for r in rows) or len(jsonl) != GRID_ROWS:
+        fail(f"sweep grid: {tsv}")
+    for r in jsonl:
+        if not r["optimal"] or r["exact_gap"] is None or \
+                r["exact_gap"] > GAP_LIMIT:
+            fail(f"sweep grid: row {r}")
+    if launches != cuts or launches <= 0:
+        fail(f"sweep grid: {launches} kernel launches for {cuts} cuts")
+
+    first = results[RERUN]
+    argmax.launches = 0
+    again, _, wall, _, _ = sweep.run_one(*RERUN, GRID_MAX_ITER, False,
+                                         device=dev)
+    torch.cuda.synchronize()
+    out["rerun"] = {"row": list(RERUN), "seconds": wall,
+                    "launches": argmax.launches,
+                    "cuts_formed": again.cuts_formed,
+                    "incumb_est": again.incumb_est,
+                    "pools": again.pool_sizes,
+                    "identical": bool(
+                        np.array_equal(again.incumb_x, first.incumb_x)
+                        and again.incumb_est == first.incumb_est
+                        and again.pool_sizes == first.pool_sizes
+                        and again.iterations == first.iterations)}
+    if not out["rerun"]["identical"]:
+        fail(f"sweep rerun of {RERUN} differs: {again} != {first}")
+    if argmax.launches != again.cuts_formed:
+        fail(f"sweep rerun: {argmax.launches} kernel launches for "
+             f"{again.cuts_formed} cuts")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: chip_smoke.py runs on a CUDA card")
@@ -1962,6 +2153,22 @@ def main() -> None:
         emit({"phase": phase, **out, "torchrun_seconds": torchrun_s})
     emit({"phase": "obs2", "seconds": time.monotonic() - t})
 
+    t = time.monotonic()
+    at_suite_stop = {}
+    for name, si in SUITE_STOPS:
+        t_s = time.monotonic()
+        out = phase_suite_stop(name, si, dev, flush, smi)
+        launches[f"{name}_b{si}_stop"] = out["launches"]
+        at_suite_stop[f"{name}_b{si}_stop"] = out["argmax_at_stop"]
+        emit({"phase": f"{name}_b{si}_stop", **out,
+              "seconds": time.monotonic() - t_s})
+    t_s = time.monotonic()
+    out = phase_suite_grid(dev)
+    launches["sweep_grid"] = out["launches"]
+    launches["sweep_rerun"] = out["rerun"]["launches"]
+    emit({"phase": "sweep_grid", **out, "seconds": time.monotonic() - t_s})
+    emit({"phase": "suite", "seconds": time.monotonic() - t})
+
     emit({"phase": "total", "seconds": time.monotonic() - t_all})
     print(smi, flush=True)
     full = kern["timed"]["full"]
@@ -1981,7 +2188,8 @@ def main() -> None:
                             for n in PREFIXES},
         "shard": {f"{S}x{w}": {k: kern["timed"][f"shard{w}"][k]
                                for k in ("ms", "plain_ms", "bound_ms")}
-                  for S, w in SHARD_SHAPES}}]})
+                  for S, w in SHARD_SHAPES},
+        "at_suite_stop": at_suite_stop}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """Batched sampling (SAMPLE_INCREMENT > 1) and CHECK_EVERY: the port against
 the JAX package, and against itself.
 
-- SD steps at B = 4 and 16 on lands and B = 4 on pgp2like, with the JAX
+- SD steps at B = 4 and 16 on lands and B = 4 on pgp2like, and two steps
+  at B = 4 at the suite's 4nodelike width (74 x 186), with the JAX
   package's draws injected: iterates, estimates and the ratio window to 1e-7
   relative, pool counts, cut counts, LP counts and the warm basis exact.
   SCAN_LEN is small (32 samples: a window of 8 steps) so that the window
@@ -68,11 +69,18 @@ def _assert_states_match(ps, st, tag):
 
 
 @pytest.mark.parametrize("name,batch,steps", [
-    ("lands", 4, 30), ("lands", 16, 20), ("pgp2like", 4, 20)])
+    ("lands", 4, 30), ("lands", 16, 20), ("pgp2like", 4, 20),
+    ("4nodelike", 4, 2)])
 def test_batched_steps_match_jax(name, batch, steps):
+    """The states hold to RTOL (1e-7 relative), counts and the warm basis
+    exactly.  4nodelike is the suite's width (second stage 74 x 186, staged
+    with 74 surplus columns; 12 RHS RVs) for two steps, too few for the
+    window to wrap."""
     kw = dict(MAX_ITER=steps * batch, SAMPLE_INCREMENT=batch, SCAN_LEN=SCAN)
     js = jax_solver(name, **kw)
     pa = stage_problem(port_problem(name), CPU)
+    if name == "4nodelike":
+        assert pa.D.shape[0] == 74
     cfg = SDConfig(EVAL_FLAG=False, **kw)
     assert cfg.eff_scan_len() == 8
     step = make_step(pa, None, cfg)
@@ -84,8 +92,10 @@ def test_batched_steps_match_jax(name, batch, steps):
         ps = step(ps, None, torch.as_tensor(w))
         _assert_states_match(ps, st, i)
         assert ps.lane_iters.shape == (batch,)
-    # The window wrapped: k passed scan_len * batch samples.
-    assert ps.k > 8 * batch and ps.ratio_cnt > 8
+    assert ps.k == steps * batch and ps.lp_cnt > steps * batch
+    if steps > 8:
+        # The window wrapped: k passed scan_len * batch samples.
+        assert ps.k > 8 * batch and ps.ratio_cnt > 8
 
 
 @pytest.mark.parametrize("name,batch", [("lands", 16), ("pgp2like", 8)])

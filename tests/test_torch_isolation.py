@@ -36,15 +36,17 @@ def _imported_roots(path):
 def test_every_module_is_checked():
     """The check walks the whole package: the feasibility, random-cost,
     branch-and-bound and compromise modules, the CLI, checkpoints, metrics,
-    the runs over several ranks and the native SMPS reader are among the
-    files it reads, and so is the ranks' test worker."""
+    the runs over several ranks, the native SMPS reader and the experiment
+    drivers (sweep, suite_to_stop) are among the files it reads, and so is
+    the ranks' test worker."""
     checked = {str(p.relative_to(PORT)) for p in _port_files()
                if PORT in p.parents}
     for mod in ("core/feasibility.py", "core/randcost.py", "core/bnb.py",
                 "core/master.py", "core/step.py", "runner.py",
                 "core/compromise.py", "cli.py", "utils/checkpoint.py",
                 "utils/metrics.py", "parallel/distributed.py",
-                "parallel/mesh.py", "parallel/runner.py", "smps/native.py"):
+                "parallel/mesh.py", "parallel/runner.py", "smps/native.py",
+                "sweep.py", "suite_to_stop.py"):
         assert mod in checked, mod
     for worker in ("torch_mesh_worker.py", "torch_obs_worker.py"):
         assert ROOT / "tests" / worker in _port_files()

@@ -10,11 +10,17 @@ import torch
 from stochasticdecomposition_torch.interop import state_from_numpy
 from stochasticdecomposition_torch.prob import attach_stoc, decompose
 from stochasticdecomposition_torch.models.instances import load_instance
+from stochasticdecomposition_torch.models.suite import (
+    SUITE, load_suite_instance,
+)
 from stochasticdecomposition_torch.models.synthetic import parse_synthetic
 from stochasticdecomposition_tpu.config import SDConfig as JaxConfig
 from stochasticdecomposition_tpu.core.state import init_state as jax_init
 from stochasticdecomposition_tpu.models.instances import (
     load_instance as jax_load_instance,
+)
+from stochasticdecomposition_tpu.models.suite import (
+    load_suite_instance as jax_load_suite_instance,
 )
 from stochasticdecomposition_tpu.models.synthetic import (
     parse_synthetic as jax_parse_synthetic,
@@ -77,6 +83,9 @@ def _parsed(name, port):
     spec = synthetic_spec(name)
     if spec is not None:
         return (parse_synthetic if port else jax_parse_synthetic)(**spec)
+    if name in SUITE:
+        return (load_suite_instance if port else
+                jax_load_suite_instance)(name)
     return (load_instance if port else jax_load_instance)(name)
 
 
